@@ -1,0 +1,66 @@
+"""The PyTorch port runs without the JAX stack.
+
+A machine with a card may have torch, numpy and the CUDA toolkit and none of
+jax, flax, optax, orbax, msgpack, ninja or triton. In a subprocess where
+those modules (and the JAX package) cannot be imported, every module of
+thinktwice_tpu_torch imports and `chip_smoke.py --device cpu --small` runs
+to exit 0; nothing reaches torch.utils.cpp_extension.
+"""
+
+import json
+import os
+import re
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BLOCKED = ("jax", "flax", "optax", "orbax", "msgpack", "ninja", "triton",
+           "thinktwice_tpu")
+
+SCRIPT = f"""
+import sys
+for name in {BLOCKED!r}:
+    sys.modules[name] = None        # any import of it raises ImportError
+import importlib, pkgutil, runpy
+import thinktwice_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(
+    thinktwice_tpu_torch.__path__, "thinktwice_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+print("imported", len(names), "modules", flush=True)
+sys.argv = ["chip_smoke.py", "--device", "cpu", "--small"]
+try:
+    runpy.run_path("chip_smoke.py", run_name="__main__")
+finally:
+    print("cpp_extension loaded:", "torch.utils.cpp_extension" in sys.modules, flush=True)
+"""
+
+
+def _port_sources():
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(os.path.join(REPO, "thinktwice_tpu_torch")):
+        paths += [os.path.join(root, f) for f in files
+                  if f.endswith((".py", ".cu", ".cuh"))]
+    return paths
+
+
+def test_port_and_smoke_run_without_jax_stack():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    lines = proc.stdout.strip().splitlines()
+    assert any(line.startswith("imported ") for line in lines)
+    assert "cpp_extension loaded: False" in lines
+    last = json.loads(lines[-2])
+    assert last == {"ok": True, "device": {"platform": "cpu", "kind": "cpu", "count": 1}}
+
+
+def test_port_sources_import_nothing_of_the_jax_stack():
+    pattern = re.compile(
+        r"^\s*(import|from) (jax|flax|optax|orbax|msgpack|ninja|thinktwice_tpu)\b")
+    for path in _port_sources():
+        with open(path) as f:
+            for n, line in enumerate(f, 1):
+                assert not pattern.match(line), f"{path}:{n}: {line.strip()}"
+                assert "cpp_extension" not in line, f"{path}:{n}: {line.strip()}"
