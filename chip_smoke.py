@@ -36,6 +36,8 @@ FP32_FLOP_PER_S = 67e12
 K1_FLOP_PER_PAIR = 15      # float operations of one pixel-primitive test
 K1_FLOP_PER_PIXEL = 8      # the pixel's world coordinates
 MISMATCH_LIMIT = 1e-4      # share of pixels where K1 may differ from plain
+N_WORLDS, N_VEHICLES = 64, 120   # the bench's shape (bench.py:38-41)
+N_TICKS = 200              # ticks of the timed rollout, policy every 2
 
 
 def log(msg: str) -> None:
@@ -215,19 +217,30 @@ def breakdown(cfg, policy, town, states, g):
         rollout(cfg, policy, town, states, 10, generator=g)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = prof.key_averages()
-    busy_us = sum(getattr(e, "self_device_time_total", 0.0) for e in events)
-    n_kernels = sum(e.count for e in events
-                    if getattr(e, "self_device_time_total", 0.0) > 0)
-    if busy_us <= 0:
+    # device time: the union of the kernels' and copies' intervals on the
+    # card (the CPU ops that launched them carry the same time again)
+    from torch.autograd import DeviceType
+
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    if not kernels:
         log("[breakdown] device busy share: not measured (no device time in the trace)")
         return
-    top = sorted(events, key=lambda e: -getattr(e, "self_device_time_total", 0.0))[:6]
+    busy_us, end = 0.0, float("-inf")
+    for t0_us, t1_us in sorted((e.time_range.start, e.time_range.end) for e in kernels):
+        if t1_us > end:
+            busy_us += t1_us - max(t0_us, end)
+            end = t1_us
+    by_name: dict[str, list[float]] = {}
+    for e in kernels:
+        row = by_name.setdefault(e.name, [0.0, 0])
+        row[0] += e.time_range.end - e.time_range.start
+        row[1] += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
     log(f"[breakdown] 10 ticks under the profiler: {wall * 1e3:.1f} ms wall, "
         f"{busy_us / 1e3:.1f} ms device busy ({busy_us / 1e6 / wall:.1%}), "
-        f"{n_kernels} device ops; top: "
-        + "; ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.2f} ms x{e.count}"
-                    for e in top))
+        f"{len(kernels)} device kernels and copies; top: "
+        + "; ".join(f"{name[:40]} {us / 1e3:.2f} ms x{n}" for name, (us, n) in top))
 
 
 def main() -> int:
@@ -235,7 +248,6 @@ def main() -> int:
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--small", action="store_true",
                     help="2 worlds, 4 ticks, small capacities (CPU rehearsal)")
-    ap.add_argument("--ticks", type=int, default=200)
     args = ap.parse_args()
 
     on_card = args.device == "cuda"
@@ -257,9 +269,7 @@ def main() -> int:
         n_worlds, n_ticks, n_vehicles = 2, 4, 8
     else:
         cfg = bench_config()
-        n_worlds, n_ticks, n_vehicles = 64, args.ticks, 120
-    if n_ticks % 2:
-        raise ValueError("--ticks must be even (policy every 2 ticks)")
+        n_worlds, n_ticks, n_vehicles = N_WORLDS, N_TICKS, N_VEHICLES
 
     # ---- phase 1: the card -------------------------------------------------
     if on_card:
