@@ -1,9 +1,15 @@
 """Chip smoke test of the PyTorch port: builds every CUDA kernel of the
-closed-loop Roach rollout from the sources in this checkout, holds each
-against its plain PyTorch version on the card, checks the port against its
-CPU run on a small input, and drives the rollout at the bench's shape
-(64 worlds on the 2-block grid town, 120 vehicles, 15 x 192 x 192
-birdview, the roach_rl6 expert, policy every 2 ticks).
+closed-loop rollouts from the sources in this checkout (one nvcc per
+source, all at once), holds each against its plain PyTorch version on the
+card at the shapes its rollout gives it, checks the port on the card
+against its CPU run on small inputs, and drives both rollouts:
+
+- the Roach rollout at the bench's shape (64 worlds on the 2-block grid
+  town, 120 vehicles, 15 x 192 x 192 birdview through K1, the roach_rl6
+  expert, policy every 2 ticks);
+- the ThinkTwice student's closed loop at the full width of the
+  student_rl6 archive (8 worlds, 4 cameras of 256 x 512 and a 64 x 1024
+  lidar through K2, ResNet-50 two-sweep model, policy every tick, 40 ticks).
 
     python3 chip_smoke.py                       # on a machine with one card
     python3 chip_smoke.py --device cpu --small  # CPU rehearsal, plain versions
@@ -29,6 +35,7 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 WEIGHTS = os.path.join(REPO, "runs", "roach_rl6", "params.msgpack")
+STUDENT_WEIGHTS = os.path.join(REPO, "runs", "student_rl6", "params.msgpack")
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -38,6 +45,10 @@ K1_FLOP_PER_PIXEL = 8      # the pixel's world coordinates
 MISMATCH_LIMIT = 1e-4      # share of pixels where K1 may differ from plain
 N_WORLDS, N_VEHICLES = 64, 120   # the bench's shape (bench.py:38-41)
 N_TICKS = 200              # ticks of the timed rollout, policy every 2
+K2_FLOP_PER_PAIR = 45      # float operations of one ray-box slab test
+K2_RTOL = 1e-5             # t of K2 against its plain version (see compare_k2)
+STUDENT_WORLDS, STUDENT_TICKS = 8, 40   # policy every tick; the ring warms at 10
+STUDENT_CTRL_TOL = 5e-2    # card vs CPU controls of the bfloat16 student
 
 
 def log(msg: str) -> None:
@@ -209,23 +220,27 @@ def breakdown(cfg, policy, town, states, g):
     log("[breakdown] ms per call at " f"{states.n_worlds} worlds: "
         + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
 
+    log(device_busy(lambda: rollout(cfg, policy, town, states, 10, generator=g),
+                    "10 ticks"))
+
+
+def device_busy(fn, what: str) -> str:
+    """Wall time of fn() and the device's busy time under the profiler: the
+    union of the kernels' and copies' intervals on the card (the CPU ops
+    that launched them carry the same time again)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        rollout(cfg, policy, town, states, 10, generator=g)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    # device time: the union of the kernels' and copies' intervals on the
-    # card (the CPU ops that launched them carry the same time again)
-    from torch.autograd import DeviceType
-
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
     if not kernels:
-        log("[breakdown] device busy share: not measured (no device time in the trace)")
-        return
+        return f"[breakdown] {what}: device busy share not measured (no device time in the trace)"
     busy_us, end = 0.0, float("-inf")
     for t0_us, t1_us in sorted((e.time_range.start, e.time_range.end) for e in kernels):
         if t1_us > end:
@@ -237,10 +252,317 @@ def breakdown(cfg, policy, town, states, g):
         row[0] += e.time_range.end - e.time_range.start
         row[1] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
-    log(f"[breakdown] 10 ticks under the profiler: {wall * 1e3:.1f} ms wall, "
-        f"{busy_us / 1e3:.1f} ms device busy ({busy_us / 1e6 / wall:.1%}), "
-        f"{len(kernels)} device kernels and copies; top: "
-        + "; ".join(f"{name[:40]} {us / 1e3:.2f} ms x{n}" for name, (us, n) in top))
+    return (f"[breakdown] {what} under the profiler: {wall * 1e3:.1f} ms wall, "
+            f"{busy_us / 1e3:.1f} ms device busy ({busy_us / 1e6 / wall:.1%}), "
+            f"{len(kernels)} device kernels and copies; top: "
+            + "; ".join(f"{name[:40]} {us / 1e3:.2f} ms x{n}" for name, (us, n) in top))
+
+
+# --------------------------------------------------------------------------
+# the ThinkTwice student and K2
+
+
+def student_tiny_config():
+    """The JAX suite's TINY shapes (tests/test_pipeline.py) for the checks on
+    small inputs."""
+    from thinktwice_tpu_torch.config import (
+        CameraConfig, Config, LidarConfig, ModelConfig, SimConfig)
+
+    return Config(
+        sim=SimConfig(max_vehicles=8, max_walkers=4, max_route_len=256, max_scenarios=4),
+        camera=CameraConfig(height=32, width=64), lidar=LidarConfig(n_beams=4, n_azimuth=64),
+        model=ModelConfig(img_height=32, img_width=64, refine_num=1, bev_channels=64,
+                          n_depth_bins=16, lidar_pillar_grid=84),
+    )
+
+
+def tiny_student(cfg, device):
+    """A two-sweep ResNet-10 student with random weights from seed 0."""
+    from thinktwice_tpu_torch.models.encoder_decoder import ThinkTwiceModel
+
+    torch.manual_seed(0)
+    return ThinkTwiceModel(cfg.model, backbone_depth=10, n_sweeps=2,
+                           n_cams=cfg.camera.n_cams).to(device).eval()
+
+
+class K2Inputs:
+    """Records the rays and box tables that cast_scene hands to K2 (or its
+    plain version) while the block runs."""
+
+    def __enter__(self):
+        from thinktwice_tpu_torch.sensors import raycast
+
+        self._mod, self._real = raycast, raycast.ray_boxes_table
+        self.calls = []
+
+        def record(origins, dirs, table):
+            self.calls.append((origins, dirs, table))
+            return self._real(origins, dirs, table)
+
+        raycast.ray_boxes_table = record
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.ray_boxes_table = self._real
+
+
+def k2_inputs(cfg, town, states):
+    """[(name, origins, dirs, table)] of one policy call: the cameras' rays
+    (every camera of every world) and the lidar's."""
+    from thinktwice_tpu_torch.sensors.camera import cameras_from_state
+    from thinktwice_tpu_torch.sensors.lidar import lidar_from_state
+
+    with K2Inputs() as rec:
+        cameras_from_state(cfg.camera, town, states)
+        lidar_from_state(cfg.lidar, town, states)
+    return [(name, *call) for name, call in zip(("cameras", "lidar"), rec.calls)]
+
+
+def compare_k2(inputs, tag: str) -> float:
+    """K2 against its plain version on the same inputs, and on a ray count
+    that is no multiple of the block (256). The hit masks and indices must
+    be equal and t within K2_RTOL (both do the same IEEE operations: t is
+    expected to be equal bit for bit, and the count of rays where it is not
+    is printed). -> max abs error of t."""
+    from thinktwice_tpu_torch.ops.raycast_cuda import ray_boxes_cuda, ray_boxes_plain
+
+    cases = list(inputs)
+    name, o, d, table = inputs[0]
+    r = o.shape[1] - 77
+    cases.append((f"{name} ragged", o[:, :r].contiguous(), d[:, :r].contiguous(), table))
+    worst = 0.0
+    for name, o, d, table in cases:
+        t_k, i_k = ray_boxes_cuda(o, d, table)
+        t_p, i_p = ray_boxes_plain(o, d, table)
+        torch.cuda.synchronize()
+        hit = i_p >= 0
+        n_idx = int((i_k != i_p).sum())
+        n_hit = int(((i_k >= 0) != hit).sum())
+        n_t = int((t_k != t_p).sum())
+        err = float((t_k - t_p).abs().max())
+        rel = float(((t_k - t_p).abs() / t_p.abs().clamp_min(1e-30))[hit].max()) \
+            if bool(hit.any()) else 0.0
+        worst = max(worst, err)
+        log(f"[k2 vs plain, {tag}, {name}] {tuple(o.shape[:2])} rays x {table.shape[1]} boxes: "
+            f"{n_idx} indices and {n_hit} hit flags differ, t differs on {n_t} rays "
+            f"(max abs {err}, max rel {rel:.2e}); {int(hit.sum())} rays hit a box")
+        if n_idx or n_hit or rel > K2_RTOL:
+            raise AssertionError(f"K2 disagrees with its plain version ({name}, {tag})")
+        if not bool(hit.any()):
+            raise AssertionError(f"no ray hit a box ({name}, {tag})")
+    return worst
+
+
+def k2_bound(inputs):
+    """(bound_ms, bound_by, pairs) of one policy call's K2 work on an H100:
+    every ray against every box of its world (the kernel has no early
+    out); bytes: rays read once, boxes read once, t and idx written once."""
+    pairs = n_bytes = 0
+    for _, o, _, table in inputs:
+        B, R, _ = o.shape
+        N = table.shape[1]
+        pairs += B * R * N
+        n_bytes += B * R * (24 + 12) + table.numel() * 4
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = pairs * K2_FLOP_PER_PAIR / FP32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), pairs
+
+
+def check_student_small(device):
+    """The student's closed loop on the card against the CPU (plain K2) on
+    the tiny config with random weights: two worlds, five policy calls in
+    lockstep on the CPU's states with the same draws. The cameras' classes
+    may differ on at most 1e-3 of the pixels (the ray directions' cosines
+    round differently on the two devices); the controls agree to
+    STUDENT_CTRL_TOL (bfloat16 on both, rounded by other libraries) and the
+    brake flags exactly."""
+    from thinktwice_tpu_torch.agents.thinktwice_driver import (
+        driver_init, make_thinktwice_driver, sample_sensor_draws)
+    from thinktwice_tpu_torch.rollout import grid_world
+    from thinktwice_tpu_torch.sensors.camera import cameras_from_state
+    from thinktwice_tpu_torch.sim.state import tree_map
+    from thinktwice_tpu_torch.sim.step import step_world
+
+    cfg = student_tiny_config()
+    g = torch.Generator().manual_seed(3)
+    town_c, st_c = grid_world(cfg, 2, 6, device="cpu", generator=g)
+    town_d = town_c.to(device)
+    model_c = tiny_student(cfg, "cpu")
+    model_d = tiny_student(cfg, device)
+    pol_c, pol_d = make_thinktwice_driver(cfg, model_c), make_thinktwice_driver(cfg, model_d)
+    drv_c = driver_init(cfg, 2, 2, hist_len=2, device="cpu")
+    drv_d = driver_init(cfg, 2, 2, hist_len=2, device=device)
+    worst_ctrl, worst_px = 0.0, 0.0
+    for _ in range(5):
+        st_d = tree_map(lambda x: x.to(device), st_c)
+        draws = sample_sensor_draws(cfg, 2, "cpu", g)
+        sem_c = cameras_from_state(cfg.camera, town_c, st_c)["semantic"]
+        sem_d = cameras_from_state(cfg.camera, town_d, st_d)["semantic"].cpu()
+        worst_px = max(worst_px, float((sem_c != sem_d).float().mean()))
+        ctrl_c, drv_c = pol_c(town_c, st_c, drv_c, draws=draws)
+        ctrl_d, drv_d = pol_d(town_d, st_d, drv_d, draws=tree_map(lambda x: x.to(device), draws))
+        worst_ctrl = max(worst_ctrl, float((ctrl_c - ctrl_d.cpu()).abs().max()))
+        if not torch.equal(ctrl_c[:, 2], ctrl_d[:, 2].cpu()):
+            raise AssertionError("the student's brake differs on the card")
+        st_c, _ = step_world(cfg, town_c, st_c, ctrl_c, generator=g)
+    log(f"[student small] 2 worlds x 5 calls, card vs CPU: controls within {worst_ctrl:.2e}, "
+        f"{worst_px:.2e} of camera pixels differ in class")
+    if worst_ctrl > STUDENT_CTRL_TOL or worst_px > 1e-3:
+        raise AssertionError("the student on the card disagrees with the CPU")
+
+
+def run_student(cfg, model, town, states, n_ticks, g, on_card, hist_len=None):
+    """The main path of the student: rollout_thinktwice, with K1 and K2's
+    counts set to 0 just before and read just after. -> (final state,
+    controls, seconds, K1 launches, K2 launches)."""
+    from thinktwice_tpu_torch.agents.thinktwice_driver import HIST_TICKS, rollout_thinktwice
+    from thinktwice_tpu_torch.ops.birdview_cuda import K1
+    from thinktwice_tpu_torch.ops.raycast_cuda import K2
+
+    K1.launches = K2.launches = 0
+    if on_card:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    final, _, controls = rollout_thinktwice(cfg, town, model, states, n_ticks, generator=g,
+                                            hist_len=hist_len or HIST_TICKS)
+    if on_card:
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return final, controls, seconds, K1.launches, K2.launches
+
+
+def check_student_run(final, controls, n_ticks):
+    from thinktwice_tpu_torch.sim.state import state_to_arrays
+
+    arrays = state_to_arrays(final)
+    _compare_arrays(arrays, arrays)          # raises on a non-finite field
+    ctrl = torch.stack(controls)
+    if not bool(torch.isfinite(ctrl).all()):
+        raise AssertionError("a student control is not finite")
+    if not (bool((ctrl[..., 0].abs() <= 1).all()) and bool((ctrl[..., 1] >= 0).all())
+            and bool((ctrl[..., 1] <= 1).all())):
+        raise AssertionError("a student control is out of range")
+    if not np.all(arrays["tick"] == n_ticks):
+        raise AssertionError("a world's tick count is wrong")
+    log(f"[student] mean speed {float(final.ego.speed.mean()):.2f} m/s, driven "
+        f"{float(final.criteria.dist_driven.mean()):.2f} m, mean route completion "
+        f"{float(final.criteria.route_completion.mean()):.4f}; mean control "
+        f"(steer, throttle, brake) {[round(v, 4) for v in ctrl.mean(dim=(0, 1)).tolist()]}")
+
+
+def student_breakdown(cfg, model, town, states, g):
+    """Where a policy call's and a tick's time goes at this shape: each stage
+    timed alone by CUDA events, and the device's busy share over 3 ticks."""
+    from thinktwice_tpu_torch.agents.thinktwice import agent_init
+    from thinktwice_tpu_torch.agents.thinktwice_driver import (
+        controls_from_outputs, driver_init, make_thinktwice_driver, rollout_thinktwice)
+    from thinktwice_tpu_torch.sensors.camera import cameras_from_state
+    from thinktwice_tpu_torch.sensors.lidar import lidar_from_state
+    from thinktwice_tpu_torch.sim.step import step_world
+
+    seen = {}
+
+    def grab(module, args, kwargs):
+        seen["args"], seen["kwargs"] = args, kwargs
+
+    hook = model.register_forward_pre_hook(grab, with_kwargs=True)
+    policy = make_thinktwice_driver(cfg, model)
+    ctrl, _ = policy(town, states, driver_init(cfg, states.n_worlds, model.n_sweeps,
+                                               device=states.tick.device), generator=g)
+    hook.remove()
+    args, kwargs = seen["args"], seen["kwargs"]
+    imgs, pts, mask, speed, tp, _, c2e, K, _ = args
+    agent = agent_init(states.n_worlds, states.tick.device)
+    with torch.no_grad():
+        outs = model(*args, **kwargs)
+        stages = {
+            "cameras": lambda: cameras_from_state(cfg.camera, town, states, generator=g),
+            "lidar": lambda: lidar_from_state(cfg.lidar, town, states, generator=g),
+            "LSS (2 sweeps)": lambda: model.img_encoder(imgs, c2e, K,
+                                                        sweep2key=kwargs["sweep2key"]),
+            "LidarNet": lambda: model.lidar_encoder(pts, mask),
+            "model forward": lambda: model(*args, **kwargs),
+            "control fusion": lambda: controls_from_outputs(outs, agent, speed, tp),
+            "step_world": lambda: step_world(cfg, town, states, ctrl, generator=g),
+        }
+        times = {k: cuda_ms(fn, reps=3, warmup=1) for k, fn in stages.items()}
+    times["decoder and fusion convs (forward - LSS - LidarNet)"] = (
+        times["model forward"] - times["LSS (2 sweeps)"] - times["LidarNet"])
+    log("[student breakdown] ms per call at " f"{states.n_worlds} worlds: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+    log(device_busy(lambda: rollout_thinktwice(cfg, town, model, states, 3, generator=g),
+                    "3 student ticks"))
+
+
+def student_phases(args, on_card: bool, device, card: str):
+    """K2 against its plain version at the student's shapes, its time, the
+    student on the card against the CPU, and the student's closed loop with
+    the student_rl6 weights (on the CPU: the tiny config with random
+    weights). -> K2's row of the kernels line (None on the CPU)."""
+    from thinktwice_tpu_torch.config import bench_config
+    from thinktwice_tpu_torch.ops.raycast_cuda import ray_boxes_cuda, ray_boxes_plain
+    from thinktwice_tpu_torch.rollout import grid_world
+    from thinktwice_tpu_torch.weights import load_student_model
+
+    g = torch.Generator(device=device).manual_seed(43)
+    if not on_card:
+        cfg = student_tiny_config()
+        model = tiny_student(cfg, device)
+        town, states = grid_world(cfg, 2, 6, device=device, generator=g)
+        final, controls, seconds, k1_n, k2_n = run_student(cfg, model, town, states, 4, g,
+                                                           False, hist_len=2)
+        log(f"[student] 2 worlds x 4 ticks (tiny config, random weights, plain K2) in "
+            f"{seconds:.3f} s; K2 launches {k2_n} (expected 0)")
+        if k1_n or k2_n:
+            raise AssertionError("a kernel launched on the CPU")
+        check_student_run(final, controls, 4)
+        return None
+
+    cfg = bench_config()
+    t0 = time.perf_counter()
+    model = load_student_model(args.student_weights, cfg, device=device)
+    log(f"[student weights] {os.path.relpath(args.student_weights, REPO)} -> ThinkTwiceModel "
+        f"({len(model.img_encoder.lss.backbone.blocks)} backbone blocks, {model.n_sweeps} sweeps, "
+        f"{sum(p.numel() for p in model.parameters())} parameters) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    town, states = grid_world(cfg, STUDENT_WORLDS, N_VEHICLES, device=device, generator=g)
+
+    inputs = k2_inputs(cfg, town, states)
+    err = compare_k2(inputs, "at reset")
+    calls = [c[1:] for c in inputs]
+    ms = cuda_ms(lambda: [ray_boxes_cuda(*c) for c in calls], reps=10)
+    plain_ms = cuda_ms(lambda: [ray_boxes_plain(*c) for c in calls], reps=2, warmup=1)
+    bound_ms, bound_by, pairs = k2_bound(inputs)
+    per = [cuda_ms(lambda c=c: ray_boxes_cuda(*c), reps=10) for c in calls]
+    log(f"[k2 time] per policy call (cameras + lidar): {ms:.4f} ms "
+        f"(cameras {per[0]:.4f}, lidar {per[1]:.4f}); plain {plain_ms:.3f} ms; bound "
+        f"{bound_ms:.4f} ms by {bound_by} ({pairs} ray-box pairs x {K2_FLOP_PER_PAIR} "
+        f"operations); library: none (no PyTorch call computes it) on {card}")
+    k2_row = dict(name="ray_boxes", route="cuda",
+                  source="thinktwice_tpu_torch/csrc/raycast.cu",
+                  replaces="thinktwice_tpu/ops/raycast_pallas.py:30",
+                  ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                  library_ms=None)
+    del inputs, calls
+
+    check_student_small(device)
+
+    final, controls, seconds, k1_n, k2_n = run_student(cfg, model, town, states,
+                                                       STUDENT_TICKS, g, True)
+    expected = 2 * STUDENT_TICKS
+    log(f"[student] {STUDENT_WORLDS} worlds x {STUDENT_TICKS} ticks (policy every tick, "
+        f"{model.n_sweeps} sweeps) in {seconds:.3f} s: "
+        f"{STUDENT_WORLDS * STUDENT_TICKS / seconds:.1f} env-steps/s on {card}; "
+        f"K2 launches {k2_n} (expected {expected}), K1 launches {k1_n}")
+    if k2_n != expected or k1_n != 0:
+        raise AssertionError(f"K2 launched {k2_n} times, expected {expected}")
+    check_student_run(final, controls, STUDENT_TICKS)
+    k2_row["launches"] = k2_n
+    inputs = k2_inputs(cfg, town, final)
+    k2_row["max_abs_err"] = max(err, compare_k2(inputs, f"after {STUDENT_TICKS} ticks"))
+    del inputs
+    student_breakdown(cfg, model, town, final, g)
+    return k2_row
 
 
 def main() -> int:
@@ -248,6 +570,8 @@ def main() -> int:
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--small", action="store_true",
                     help="2 worlds, 4 ticks, small capacities (CPU rehearsal)")
+    ap.add_argument("--student-weights", default=STUDENT_WEIGHTS,
+                    help="the student's flax msgpack archive (default: student_rl6)")
     args = ap.parse_args()
 
     on_card = args.device == "cuda"
@@ -256,7 +580,9 @@ def main() -> int:
         return 2
 
     from thinktwice_tpu_torch.config import Config, SimConfig, bench_config
-    from thinktwice_tpu_torch.ops.birdview_cuda import K1, SOURCE
+    from thinktwice_tpu_torch.ops.birdview_cuda import K1
+    from thinktwice_tpu_torch.ops.nvcc import build_all
+    from thinktwice_tpu_torch.ops.raycast_cuda import K2
     from thinktwice_tpu_torch.rollout import grid_world, rollout
     from thinktwice_tpu_torch.sim.state import state_to_arrays
     from thinktwice_tpu_torch.weights import load_roach_policy
@@ -283,12 +609,14 @@ def main() -> int:
         kind, card = "cpu", "cpu"
         log(f"[card] none: CPU rehearsal with the plain versions, torch {torch.__version__}")
 
-    # ---- phase 2: build K1 -------------------------------------------------
+    # ---- phase 2: build K1 and K2, one nvcc each, at once ----------------
     if on_card:
-        K1.library()
-        log(f"[build] K1 {os.path.relpath(SOURCE, REPO)}: {K1.build_seconds:.1f} s")
-        for line in K1.build_log.strip().splitlines():
-            log(f"[build]   {line.strip()}")
+        wall = build_all([K1, K2])
+        log(f"[build] K1 and K2 in {wall:.1f} s")
+        for name, k in (("K1", K1), ("K2", K2)):
+            log(f"[build] {name} {os.path.relpath(k.source, REPO)}: {k.build_seconds:.1f} s")
+            for line in k.build_log.strip().splitlines():
+                log(f"[build]   {line.strip()}")
 
     device = torch.device(args.device)
     policy = load_roach_policy(WEIGHTS, cfg, device=device)
@@ -323,9 +651,9 @@ def main() -> int:
         policy_cpu = load_roach_policy(WEIGHTS, cfg, device="cpu")
         check_small_reference(cfg, policy_cpu, device)
 
-    # ---- phase 5: the main path ---------------------------------------------
+    # ---- phase 5: the Roach rollout, the first main path -------------------
     comp0 = float(states0.criteria.route_completion.mean())
-    K1.launches = 0
+    K1.launches = K2.launches = 0
     if on_card:
         torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -333,12 +661,12 @@ def main() -> int:
     if on_card:
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = K1.launches
+    launches, k2_in_roach = K1.launches, K2.launches
     expected = n_ticks // 2 if on_card else 0
     log(f"[rollout] {n_worlds} worlds x {n_ticks} ticks in {seconds:.3f} s: "
         f"{n_worlds * n_ticks / seconds:.1f} env-steps/s on {card}; "
-        f"K1 launches {launches} (expected {expected})")
-    if launches != expected:
+        f"K1 launches {launches} (expected {expected}), K2 launches {k2_in_roach}")
+    if launches != expected or k2_in_roach != 0:
         raise AssertionError(f"K1 launched {launches} times, expected {expected}")
     arrays = state_to_arrays(final)
     _compare_arrays(arrays, arrays)          # raises on a non-finite field
@@ -363,9 +691,17 @@ def main() -> int:
         compare_k1(cfg.birdview, town, final, f"after {n_ticks} ticks")
         breakdown(cfg, policy, town, final, g)
         k1_row["launches"] = launches
+    del town, states0, warm, final, events, controls, policy
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # ---- phase 6: the ThinkTwice student, the second main path --------------
+    k2_row = student_phases(args, on_card, device, card)
+
+    if on_card:
         keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-        log(json.dumps({"kernels": [{k: k1_row[k] for k in keys}]}))
+        log(json.dumps({"kernels": [{k: row[k] for k in keys} for row in (k1_row, k2_row)]}))
         log(card_line())
         device_info = {"platform": "gpu", "kind": kind,
                        "count": torch.cuda.device_count()}

@@ -4,7 +4,8 @@ A machine with a card may have torch, numpy and the CUDA toolkit and none of
 jax, flax, optax, orbax, msgpack, ninja or triton. In a subprocess where
 those modules (and the JAX package) cannot be imported, every module of
 thinktwice_tpu_torch imports and `chip_smoke.py --device cpu --small` runs
-to exit 0; nothing reaches torch.utils.cpp_extension.
+to exit 0, the Roach rollout and the tiny student's closed loop included;
+nothing reaches torch.utils.cpp_extension.
 """
 
 import json
@@ -51,6 +52,8 @@ def test_port_and_smoke_run_without_jax_stack():
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
     lines = proc.stdout.strip().splitlines()
     assert any(line.startswith("imported ") for line in lines)
+    assert any(line.startswith("[rollout] ") for line in lines)
+    assert any(line.startswith("[student] 2 worlds x 4 ticks") for line in lines)
     assert "cpp_extension loaded: False" in lines
     last = json.loads(lines[-2])
     assert last == {"ok": True, "device": {"platform": "cpu", "kind": "cpu", "count": 1}}

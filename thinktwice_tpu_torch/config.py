@@ -1,10 +1,10 @@
-"""Config tree of the closed-loop Roach rollout.
+"""Config tree of the closed-loop rollouts.
 
 A copy of the dataclasses of `thinktwice_tpu/config.py` that this package
-reads (`SimConfig`, `BirdviewConfig`, `RoachConfig` and the `Config` that
-holds them), with the same field names and defaults, so a test can build one
-of each from the same numbers. The camera, lidar, student-model and training
-configs join when the modules that read them are ported.
+reads (`SimConfig`, `BirdviewConfig`, `CameraConfig`, `LidarConfig`,
+`ModelConfig`, `RoachConfig` and the `Config` that holds them), with the
+same field names and defaults, so a test can build one of each from the same
+numbers. The training config joins when training is ported.
 """
 
 from __future__ import annotations
@@ -78,6 +78,58 @@ class BirdviewConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class CameraConfig:
+    """Multi-camera raster: front, left, right and back pinhole cameras."""
+
+    n_cams: int = 4
+    height: int = 256
+    width: int = 512
+    fov_deg: float = 150.0
+    cam_yaws: Tuple[float, ...] = (0.0, -90.0, 90.0, 180.0)  # deg from heading
+    cam_height: float = 1.8          # mount height (m)
+    max_depth: float = 60.0
+
+
+@dataclasses.dataclass(frozen=True)
+class LidarConfig:
+    """Ray-cast lidar of 64 beams x 1024 azimuth steps."""
+
+    n_beams: int = 64
+    n_azimuth: int = 1024
+    upper_fov: float = 10.0
+    lower_fov: float = -30.0
+    max_range: float = 85.0
+    z_mount: float = 2.5
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """ThinkTwice student encoder and decoder widths."""
+
+    bev_size: int = 21               # 21 x 21 BEV cells
+    bev_x_min: float = -8.0
+    bev_x_max: float = 30.4
+    bev_y_min: float = -19.2
+    bev_y_max: float = 19.2
+    bev_channels: int = 256
+    n_depth_bins: int = 80           # [1, 41) m at 0.5 m
+    depth_min: float = 1.0
+    depth_step: float = 0.5
+    n_seg_classes: int = 12
+    pred_len: int = 4                # future waypoint and control steps
+    refine_num: int = 5              # cascaded decoder layers
+    measurement_dim: int = 128
+    feature_dim: int = 256
+    n_attn_heads: int = 8
+    n_attn_points: int = 8
+    n_attn_levels: int = 4
+    n_z_anchors: int = 15            # z levels of the look module's anchors
+    img_height: int = 256
+    img_width: int = 512
+    lidar_pillar_grid: int = 336     # dense pillar grid edge
+
+
+@dataclasses.dataclass(frozen=True)
 class RoachConfig:
     """Privileged expert: XtMaCNN trunk plus Beta policy and value heads."""
 
@@ -93,6 +145,9 @@ class RoachConfig:
 class Config:
     sim: SimConfig = dataclasses.field(default_factory=SimConfig)
     birdview: BirdviewConfig = dataclasses.field(default_factory=BirdviewConfig)
+    camera: CameraConfig = dataclasses.field(default_factory=CameraConfig)
+    lidar: LidarConfig = dataclasses.field(default_factory=LidarConfig)
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     roach: RoachConfig = dataclasses.field(default_factory=RoachConfig)
 
 

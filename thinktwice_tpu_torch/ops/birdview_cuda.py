@@ -13,25 +13,17 @@ Bit layout: 0 road, 1 route, 2 lane solid, 3 lane broken, 4+h vehicles
 (history h = 0..3), 8+h walkers, 12+3h+s traffic lights (s: 0 green,
 1 yellow, 2 red); active stop signs paint the red bit.
 
-The CUDA source is compiled with nvcc for sm_90a at first use into
-`_build/` beside this package (named by the source's hash, so an edit
-rebuilds) and loaded with ctypes.
+The CUDA source is compiled with nvcc for sm_90a at first use (`ops/nvcc.py`)
+and loaded with ctypes.
 """
 
 from __future__ import annotations
-
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
 
 import torch
 
 from thinktwice_tpu_torch.config import BirdviewConfig
 from thinktwice_tpu_torch.maps.town import TL_GREEN, TL_RED, TL_YELLOW, TownMap
+from thinktwice_tpu_torch.ops.nvcc import CudaKernel, check_tensor, cf, ci, vp
 
 LANE_BROKEN_VALUE = 120.0 / 255.0
 TL_GREEN_VALUE = 80.0 / 255.0
@@ -41,14 +33,6 @@ TL_RED_VALUE = 1.0
 ROW = 8
 TILE_MARGIN_M = 0.05   # cull margin; far above the rounding of pixel coords
 PLAIN_CHUNK = 64       # primitives per step of the plain version
-
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "birdview.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v",
-]
 
 
 def n_bits(cfg: BirdviewConfig) -> int:
@@ -222,97 +206,16 @@ def birdview_bits_plain(cfg: BirdviewConfig, prims, ego, chunk: int = PLAIN_CHUN
 # the kernel
 
 
-class _Kernel:
-    """The built library and the count of kernel launches."""
-
-    def __init__(self):
-        self.launches = 0
-        self.build_log = ""
-        self.build_seconds = None
-        self._lib = None
-        self._lock = threading.Lock()
-
-    def library(self):
-        with self._lock:
-            if self._lib is None:
-                self._lib = _load(self)
-            return self._lib
-
-
-K1 = _Kernel()
-
-
-def _source_hash() -> str:
-    with open(SOURCE, "rb") as f:
-        data = f.read()
-    return hashlib.sha256(data + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build K1")
-
-
-def build_library() -> tuple[str, str]:
-    """Compile the CUDA source unless a library of the same hash exists.
-    Returns (path, compiler output)."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    path = os.path.join(BUILD_DIR, f"birdview-{_source_hash()}.so")
-    if os.path.exists(path):
-        return path, ""
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-            capture_output=True, text=True, check=False,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return path, proc.stdout + proc.stderr
-
-
-def _load(kernel: _Kernel):
-    import time
-
-    t0 = time.perf_counter()
-    path, log = build_library()
-    kernel.build_seconds = time.perf_counter() - t0
-    kernel.build_log = log
-    lib = ctypes.CDLL(path)
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.tt_birdview_bits.argtypes = [vp, ci, ci, vp, vp, ci, cf, cf, cf, vp]
-    lib.tt_birdview_bits.restype = ci
-    lib.tt_error_string.argtypes = [ci]
-    lib.tt_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _check(t, name, dtype, shape):
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} must lie on the CUDA device, got {t.device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+K1 = CudaKernel("birdview", "birdview.cu", {
+    "tt_birdview_bits": ([vp, ci, ci, vp, vp, ci, cf, cf, cf, vp], ci),
+})
 
 
 def birdview_bits_cuda(cfg: BirdviewConfig, prims, ego):
     """Launch K1 on the current stream -> (B, W, W) int32."""
     B, NP, _ = prims.shape
-    _check(prims, "prims", torch.float32, (B, NP, ROW))
-    _check(ego, "ego", torch.float32, (B, 4))
+    check_tensor(prims, "prims", torch.float32, (B, NP, ROW))
+    check_tensor(ego, "ego", torch.float32, (B, 4))
     if ego.device != prims.device:
         raise ValueError("prims and ego must lie on the same device")
     lib = K1.library()
@@ -325,8 +228,7 @@ def birdview_bits_cuda(cfg: BirdviewConfig, prims, ego):
             float(cfg.pixels_ev_to_bottom), float(cfg.pixels_per_meter),
             TILE_MARGIN_M, stream,
         )
-    if rc != 0:
-        raise RuntimeError(f"K1 launch failed: {lib.tt_error_string(rc).decode()}")
+    K1.check(rc)
     K1.launches += 1
     return out
 

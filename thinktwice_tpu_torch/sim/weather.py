@@ -10,6 +10,9 @@ from __future__ import annotations
 
 import numpy as np
 
+(W_CLOUD, W_RAIN, W_DEPOSITS, W_WIND, W_AZIMUTH, W_ALTITUDE, W_WETNESS,
+ W_FOG_DIST, W_FOG_DENSITY, W_FOG_FALLOFF) = range(10)
+
 
 def make_weather(cloudiness=0.0, precipitation=0.0, precipitation_deposits=0.0,
                  wind_intensity=0.0, sun_azimuth_angle=0.0,

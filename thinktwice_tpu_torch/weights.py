@@ -10,10 +10,17 @@ bool, and flax's extension types 1 (an ndarray as a msgpack triple
 `roach_state_dict_from_flax` maps the flax Roach param tree onto
 `agents.roach.RoachPolicy`'s state_dict: conv kernels HWIO -> OIHW, Dense
 kernels (in, out) -> Linear weights (out, in).
+
+`student_state_dict_from_flax` maps the flax ThinkTwiceModel tree onto
+`models.encoder_decoder.ThinkTwiceModel`, whose submodules carry the flax
+names: path for path, conv kernels HWIO -> OIHW, Dense kernels transposed,
+GroupNorm and LayerNorm `scale` -> `weight`; the backbone's rematerialized
+blocks `Checkpoint<Block>_k` go to `blocks.k` by their numeric suffix.
 """
 
 from __future__ import annotations
 
+import re
 import struct
 
 import numpy as np
@@ -21,6 +28,7 @@ import torch
 
 from thinktwice_tpu_torch import resolve_device
 from thinktwice_tpu_torch.agents.roach import RoachPolicy
+from thinktwice_tpu_torch.models.encoder_decoder import ThinkTwiceModel
 
 _EXT_NDARRAY, _EXT_NPSCALAR = 1, 3
 
@@ -182,3 +190,75 @@ def load_roach_policy(path: str, cfg, device="cuda"):
     )
     policy.load_state_dict(sd, strict=True)
     return policy.to(device).eval()
+
+
+_REMAT_BLOCK = re.compile(r"^Checkpoint\w+_(\d+)$")
+
+
+def _flat_leaves(tree: dict, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat_leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _student_leaf(path, value):
+    """A flax leaf -> (torch state_dict key, array)."""
+    mods = [f"blocks.{_REMAT_BLOCK.match(p).group(1)}" if _REMAT_BLOCK.match(p) else p
+            for p in path[:-1]]
+    leaf = path[-1]
+    a = np.asarray(value, np.float32)
+    if leaf == "kernel":
+        leaf = "weight"
+        a = np.transpose(a, (3, 2, 0, 1)) if a.ndim == 4 else a.T
+    elif leaf == "scale":
+        leaf = "weight"
+    return ".".join(mods + [leaf]), a
+
+
+def student_state_dict_from_flax(tree: dict, model: ThinkTwiceModel) -> dict:
+    """Flax ThinkTwiceModel params -> model.state_dict() tensors. Raises if a
+    flax leaf has no parameter of the model, a parameter gets no leaf, or a
+    shape differs."""
+    p = tree.get("params", tree)
+    want = {k: v.shape for k, v in model.state_dict().items()}
+    out = {}
+    for path, value in _flat_leaves(p):
+        key, a = _student_leaf(path, value)
+        if key not in want:
+            raise KeyError(f"flax leaf {'/'.join(path)} has no parameter {key}")
+        if tuple(a.shape) != tuple(want[key]):
+            raise ValueError(f"{key}: flax {a.shape} vs port {tuple(want[key])}")
+        out[key] = torch.tensor(a)
+    missing = sorted(set(want) - set(out))
+    if missing:
+        raise KeyError(f"{len(missing)} port parameters have no flax leaf: {missing[:8]}")
+    return out
+
+
+def student_arch(tree: dict) -> tuple[int, int]:
+    """(backbone depth, n_sweeps) of a flax student tree: the backbone's
+    block type and count, and the width of the sweep-merge conv."""
+    p = tree.get("params", tree)
+    enc = p["img_encoder"]
+    blocks = [k for k in enc["lss"]["backbone"] if _REMAT_BLOCK.match(k)]
+    bottleneck = any("Bottleneck" in k for k in blocks)
+    depth = {(True, 16): 50, (False, 4): 10, (False, 8): 18, (False, 16): 34}[
+        (bottleneck, len(blocks))]
+    merge = enc.get("sweep_merge")
+    n_sweeps = 1 if merge is None else merge["kernel"].shape[2] // merge["kernel"].shape[3]
+    return depth, n_sweeps
+
+
+def load_student_model(path: str, cfg, device="cuda"):
+    """A ThinkTwiceModel with the weights of a flax student archive (backbone
+    depth and sweep count read from the archive), in eval mode on `device`.
+    cfg is the full Config (model widths and camera count)."""
+    device = resolve_device(device)
+    tree = load_flax_msgpack(path)
+    depth, n_sweeps = student_arch(tree)
+    model = ThinkTwiceModel(cfg.model, backbone_depth=depth, n_sweeps=n_sweeps,
+                            n_cams=cfg.camera.n_cams)
+    model.load_state_dict(student_state_dict_from_flax(tree, model), strict=True)
+    return model.to(device).eval()
