@@ -46,8 +46,10 @@ MISMATCH_LIMIT = 1e-4      # share of pixels where K1 may differ from plain
 N_WORLDS, N_VEHICLES = 64, 120   # the bench's shape (bench.py:38-41)
 N_TICKS = 200              # ticks of the timed rollout, policy every 2
 K2_FLOP_PER_PAIR = 45      # float operations of one ray-box slab test
+K2_FLOP_PER_CULL = 42      # float operations of one (tile, box) cone-sphere test
 K2_RTOL = 1e-5             # t of K2 against its plain version (see compare_k2)
 STUDENT_WORLDS, STUDENT_TICKS = 8, 40   # policy every tick; the ring warms at 10
+STUDENT_WARMUP = 3         # untimed student ticks before the timed run
 STUDENT_CTRL_TOL = 5e-2    # card vs CPU controls of the bfloat16 student
 
 
@@ -295,9 +297,9 @@ class K2Inputs:
         self._mod, self._real = raycast, raycast.ray_boxes_table
         self.calls = []
 
-        def record(origins, dirs, table):
-            self.calls.append((origins, dirs, table))
-            return self._real(origins, dirs, table)
+        def record(origins, dirs, table, grid=None):
+            self.calls.append((origins, dirs, table, grid))
+            return self._real(origins, dirs, table, grid=grid)
 
         raycast.ray_boxes_table = record
         return self
@@ -307,8 +309,9 @@ class K2Inputs:
 
 
 def k2_inputs(cfg, town, states):
-    """[(name, origins, dirs, table)] of one policy call: the cameras' rays
-    (every camera of every world) and the lidar's."""
+    """[(name, origins, dirs, table, grid)] of one policy call: the cameras'
+    rays (every camera of every world, grid (H, W)) and the lidar's (grid
+    (beams, azimuths))."""
     from thinktwice_tpu_torch.sensors.camera import cameras_from_state
     from thinktwice_tpu_torch.sensors.lidar import lidar_from_state
 
@@ -319,20 +322,21 @@ def k2_inputs(cfg, town, states):
 
 
 def compare_k2(inputs, tag: str) -> float:
-    """K2 against its plain version on the same inputs, and on a ray count
-    that is no multiple of the block (256). The hit masks and indices must
-    be equal and t within K2_RTOL (both do the same IEEE operations: t is
-    expected to be equal bit for bit, and the count of rays where it is not
-    is printed). -> max abs error of t."""
+    """K2 against its plain version on the same inputs, with the main path's
+    grids and on a ray count that is no multiple of a block (without a
+    grid). The hit masks and indices must be equal and t within K2_RTOL
+    (both do the same IEEE operations: t is expected to be equal bit for
+    bit, and the count of rays where it is not is printed). K2 without a
+    grid must equal K2 with one bit for bit. -> max abs error of t."""
     from thinktwice_tpu_torch.ops.raycast_cuda import ray_boxes_cuda, ray_boxes_plain
 
     cases = list(inputs)
-    name, o, d, table = inputs[0]
+    name, o, d, table, _ = inputs[0]
     r = o.shape[1] - 77
-    cases.append((f"{name} ragged", o[:, :r].contiguous(), d[:, :r].contiguous(), table))
+    cases.append((f"{name} ragged", o[:, :r].contiguous(), d[:, :r].contiguous(), table, None))
     worst = 0.0
-    for name, o, d, table in cases:
-        t_k, i_k = ray_boxes_cuda(o, d, table)
+    for name, o, d, table, grid in cases:
+        t_k, i_k = ray_boxes_cuda(o, d, table, grid)
         t_p, i_p = ray_boxes_plain(o, d, table)
         torch.cuda.synchronize()
         hit = i_p >= 0
@@ -343,29 +347,49 @@ def compare_k2(inputs, tag: str) -> float:
         rel = float(((t_k - t_p).abs() / t_p.abs().clamp_min(1e-30))[hit].max()) \
             if bool(hit.any()) else 0.0
         worst = max(worst, err)
-        log(f"[k2 vs plain, {tag}, {name}] {tuple(o.shape[:2])} rays x {table.shape[1]} boxes: "
-            f"{n_idx} indices and {n_hit} hit flags differ, t differs on {n_t} rays "
-            f"(max abs {err}, max rel {rel:.2e}); {int(hit.sum())} rays hit a box")
+        log(f"[k2 vs plain, {tag}, {name}] {tuple(o.shape[:2])} rays x {table.shape[1]} boxes, "
+            f"grid {grid}: {n_idx} indices and {n_hit} hit flags differ, t differs on {n_t} "
+            f"rays (max abs {err}, max rel {rel:.2e}); {int(hit.sum())} rays hit a box")
         if n_idx or n_hit or rel > K2_RTOL:
             raise AssertionError(f"K2 disagrees with its plain version ({name}, {tag})")
         if not bool(hit.any()):
             raise AssertionError(f"no ray hit a box ({name}, {tag})")
+        if grid is not None:
+            t_n, i_n = ray_boxes_cuda(o, d, table, None)
+            torch.cuda.synchronize()
+            n_diff = int((i_n != i_k).sum()) + int((t_n != t_k).sum())
+            log(f"[k2 grid vs none, {tag}, {name}] {n_diff} rays differ")
+            if n_diff:
+                raise AssertionError(f"K2 depends on the grid ({name}, {tag})")
     return worst
 
 
-def k2_bound(inputs):
-    """(bound_ms, bound_by, pairs) of one policy call's K2 work on an H100:
-    every ray against every box of its world (the kernel has no early
-    out); bytes: rays read once, boxes read once, t and idx written once."""
-    pairs = n_bytes = 0
-    for _, o, _, table in inputs:
+def k2_bound(inputs) -> dict:
+    """The least time of one policy call's K2 work on an H100, for the
+    data-dependent work these
+    inputs need: the (ray, box) pairs that the per-tile cull keeps, each a
+    slab test, plus one cone-sphere test for each (tile, box); the kept
+    pairs are counted by k2_tile_cull_plain, the kernel's cull. Bytes: rays
+    read once, boxes read once, t and idx written once. The all-pairs bound
+    (every ray against every box) is given for comparison."""
+    from thinktwice_tpu_torch.ops.raycast_cuda import k2_tile_cull_plain
+
+    pairs = tests = all_pairs = n_bytes = 0
+    for _, o, d, table, grid in inputs:
         B, R, _ = o.shape
         N = table.shape[1]
-        pairs += B * R * N
+        keep, ids = k2_tile_cull_plain(o, d, table, grid)
+        pairs += int((keep.sum(-1) * (ids >= 0).sum(-1)).sum())
+        tests += keep.numel()
+        all_pairs += B * R * N
         n_bytes += B * R * (24 + 12) + table.numel() * 4
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = pairs * K2_FLOP_PER_PAIR / FP32_FLOP_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), pairs
+    t_ops = (pairs * K2_FLOP_PER_PAIR + tests * K2_FLOP_PER_CULL) / FP32_FLOP_PER_S * 1e3
+    t_all = all_pairs * K2_FLOP_PER_PAIR / FP32_FLOP_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes_ms=t_bytes, ops_ms=t_ops, pairs=pairs, tests=tests,
+                all_pairs=all_pairs, all_pairs_ms=max(t_bytes, t_all))
 
 
 def check_student_small(device):
@@ -499,8 +523,9 @@ def student_phases(args, on_card: bool, device, card: str):
     student on the card against the CPU, and the student's closed loop with
     the student_rl6 weights (on the CPU: the tiny config with random
     weights). -> K2's row of the kernels line (None on the CPU)."""
+    from thinktwice_tpu_torch.agents.thinktwice_driver import rollout_thinktwice
     from thinktwice_tpu_torch.config import bench_config
-    from thinktwice_tpu_torch.ops.raycast_cuda import ray_boxes_cuda, ray_boxes_plain
+    from thinktwice_tpu_torch.ops.raycast_cuda import K2_TILE, ray_boxes_cuda, ray_boxes_plain
     from thinktwice_tpu_torch.rollout import grid_world
     from thinktwice_tpu_torch.weights import load_student_model
 
@@ -529,23 +554,35 @@ def student_phases(args, on_card: bool, device, card: str):
 
     inputs = k2_inputs(cfg, town, states)
     err = compare_k2(inputs, "at reset")
-    calls = [c[1:] for c in inputs]
+    calls = [c[1:] for c in inputs]                       # (origins, dirs, table, grid)
     ms = cuda_ms(lambda: [ray_boxes_cuda(*c) for c in calls], reps=10)
-    plain_ms = cuda_ms(lambda: [ray_boxes_plain(*c) for c in calls], reps=2, warmup=1)
-    bound_ms, bound_by, pairs = k2_bound(inputs)
+    plain_ms = cuda_ms(lambda: [ray_boxes_plain(*c[:3]) for c in calls], reps=2, warmup=1)
+    kb = k2_bound(inputs)
     per = [cuda_ms(lambda c=c: ray_boxes_cuda(*c), reps=10) for c in calls]
-    log(f"[k2 time] per policy call (cameras + lidar): {ms:.4f} ms "
-        f"(cameras {per[0]:.4f}, lidar {per[1]:.4f}); plain {plain_ms:.3f} ms; bound "
-        f"{bound_ms:.4f} ms by {bound_by} ({pairs} ray-box pairs x {K2_FLOP_PER_PAIR} "
-        f"operations); library: none (no PyTorch call computes it) on {card}")
+    flat_ms = cuda_ms(lambda: [ray_boxes_cuda(*c[:3]) for c in calls], reps=10)
+    log(f"[k2 time] per policy call (cameras + lidar), {K2_TILE[0]}x{K2_TILE[1]} tiles: "
+        f"{ms:.4f} ms (cameras {per[0]:.4f}, lidar {per[1]:.4f}); "
+        f"no grid {flat_ms:.4f} ms; plain {plain_ms:.3f} ms; bound {kb['bound_ms']:.4f} ms "
+        f"by {kb['bound_by']} (bytes {kb['bytes_ms']:.4f} ms; operations "
+        f"{kb['ops_ms']:.4f} ms: {kb['pairs']} ray-box pairs kept by the tile cull "
+        f"of {kb['all_pairs']} ({kb['pairs'] / kb['all_pairs']:.2%}) x {K2_FLOP_PER_PAIR} "
+        f"+ {kb['tests']} tile-box cull tests x {K2_FLOP_PER_CULL}); all-pairs bound "
+        f"{kb['all_pairs_ms']:.4f} ms; library: none (no PyTorch call computes it) on {card}")
     k2_row = dict(name="ray_boxes", route="cuda",
                   source="thinktwice_tpu_torch/csrc/raycast.cu",
                   replaces="thinktwice_tpu/ops/raycast_pallas.py:30",
-                  ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                  ms=ms, plain_ms=plain_ms, bound_ms=kb["bound_ms"], bound_by=kb["bound_by"],
                   library_ms=None)
     del inputs, calls
 
     check_student_small(device)
+
+    # the first forward of the full-width model is slow: warm up before timing
+    t0 = time.perf_counter()
+    rollout_thinktwice(cfg, town, model, states, STUDENT_WARMUP, generator=g)
+    torch.cuda.synchronize()
+    log(f"[student warm-up] {STUDENT_WORLDS} worlds x {STUDENT_WARMUP} ticks, the model's "
+        f"first forward included, in {time.perf_counter() - t0:.3f} s on {card}")
 
     final, controls, seconds, k1_n, k2_n = run_student(cfg, model, town, states,
                                                        STUDENT_TICKS, g, True)
@@ -640,8 +677,11 @@ def main() -> int:
         ms = cuda_ms(lambda: birdview_bits_cuda(cfg.birdview, prims, ego), reps=50)
         plain_ms = cuda_ms(lambda: birdview_bits_plain(cfg.birdview, prims, ego), reps=3)
         bound_ms, bound_by, pairs = k1_bound(cfg.birdview, prims, ego)
-        log(f"[k1 time] {ms:.4f} ms (plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
-            f"by {bound_by}, {pairs} pixel-primitive pairs) on {card}")
+        in_use = float((prims[..., 1] >= 0).sum()) / prims.shape[0]
+        log(f"[k1 time] {ms:.4f} ms a launch "
+            f"(plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by}, {pairs} "
+            f"pixel-primitive pairs; {in_use:.1f} of {prims.shape[1]} rows a world in use) "
+            f"on {card}")
         k1_row = dict(name="birdview_bits", route="cuda",
                       source="thinktwice_tpu_torch/csrc/birdview.cu",
                       replaces="thinktwice_tpu/ops/birdview_pallas.py:200",

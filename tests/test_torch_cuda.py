@@ -7,6 +7,8 @@ they run with
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import math
+
 import pytest
 import torch
 
@@ -127,3 +129,182 @@ def test_k2_rejects_what_it_does_not_take(card):
         k2.ray_boxes_table(o.transpose(0, 1).contiguous().transpose(0, 1), d, table)
     with pytest.raises(ValueError, match="shape"):
         k2.ray_boxes_table(o, d, table[..., :8])
+
+
+def _camera_scene(n_worlds, H, W, N, seed=0):
+    """Camera-like rays (4 views of H x W pixels from one origin a world,
+    row-major) and N boxes within 40 m of the origins: ~20% inactive, box 1
+    a copy of box 0 (a tie wherever box 0 is hit), a few boxes behind and
+    around the origin, and one tiny box."""
+    from thinktwice_tpu_torch.config import CameraConfig
+    from thinktwice_tpu_torch.sensors.camera import camera_rays
+
+    g = torch.Generator().manual_seed(seed)
+    ego_pos = torch.rand((n_worlds, 2), generator=g) * 100
+    ego_yaw = (torch.rand((n_worlds,), generator=g) - 0.5) * 6.28
+    o, d, _ = camera_rays(CameraConfig(height=H, width=W), ego_pos, ego_yaw)
+    pose = torch.cat([ego_pos[:, None] + (torch.rand((n_worlds, N, 2), generator=g) - 0.5) * 80,
+                      torch.rand((n_worlds, N, 1), generator=g) * 6,
+                      torch.rand((n_worlds, N, 2), generator=g) * 2 + 0.2,
+                      torch.rand((n_worlds, N, 1), generator=g) * 2 + 1,
+                      torch.rand((n_worlds, N, 1), generator=g) * 0.5], dim=-1)
+    pose[:, 0, :2] = ego_pos + 6.0                # near enough to be seen
+    pose[:, 1] = pose[:, 0]                       # a tie on every ray that hits it
+    pose[:, 2, :2] = ego_pos                      # around the origins
+    pose[:, 3, 3:5] = 1e-3                        # tiny
+    active = torch.rand((n_worlds, N), generator=g) > 0.2
+    active[:, :4] = True
+    return o.contiguous(), d.contiguous(), k2.box_table(pose, active)
+
+
+def _k2_equal(card, o, d, table, grid):
+    o, d, table = o.to(card), d.to(card), table.to(card)
+    t, idx = k2.ray_boxes_cuda(o, d, table, grid)
+    torch.cuda.synchronize()
+    t_p, idx_p = k2.ray_boxes_plain(o, d, table)
+    assert torch.equal(idx, idx_p)
+    assert torch.equal(t, t_p)
+    return idx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [(32, 64), (8, 256), None])
+def test_k2_tile_cull_matches_plain_on_card(card, grid):
+    o, d, table = _camera_scene(3, 32, 64, 300)
+    idx = _k2_equal(card, o, d, table, grid)
+    assert bool((idx >= 0).any()) and not bool((idx == 1).any())   # lowest index wins
+    keep, _ = k2.k2_tile_cull_plain(o, d, table, grid)
+    assert float(keep.float().mean()) < 0.5 or grid is None        # the cull drops boxes
+
+
+def adversarial_rays():
+    """K2's hard cases for its cull, in plain torch: one world of 6 groups
+    of 256 rays (grid (96, 16) puts each group in one tile) and 9 boxes.
+    Rays from inside box 0, rays that graze box 1's faces and edges, rays
+    with a box (2) behind them, rays at a 2 mm box (3) 35 m away, rays
+    along the axes (exactly zero components) and diagonals from (100, 100,
+    1), the axes at boxes 4-7, and a narrow fan from one origin tangent to
+    box 8's bounding sphere at a corner, turning into the box by up to 0.5
+    mrad (6 mm at the corner): the cull's own boundary, which it keeps only
+    with its slack (a sphere shrunk by 1 cm with no slack drops it)."""
+    g = torch.Generator().manual_seed(5)
+    n = 256
+    pose = torch.tensor([
+        [0.0, 0.0, 0.4, 2.0, 1.0, 1.5, 0.0],       # 0: holds the first origins
+        [20.0, 0.0, 0.0, 2.0, 1.0, 1.5, 0.0],      # 1: axis-aligned, grazed
+        [-15.0, 5.0, 0.0, 2.0, 1.0, 1.5, 0.0],     # 2: behind the third tile
+        [40.0, 10.0, 0.7, 1e-3, 1e-3, 1.001, 0.999],  # 3: tiny
+        [130.0, 100.0, 0.0, 1.0, 1.0, 2.0, 0.0],   # 4-7: on the axes from (100, 100)
+        [100.0, 130.0, 0.0, 1.0, 1.0, 2.0, 0.0],
+        [70.0, 100.0, 0.0, 1.0, 1.0, 2.0, 0.0],
+        [100.0, 70.0, 0.0, 1.0, 1.0, 2.0, 0.0],
+        [60.0, -20.0, 0.3, 1.5, 0.8, 1.7, 0.2],    # 8: a corner on the tile's edge
+    ])
+    o = torch.zeros((6, n, 3))
+    d = torch.zeros((6, n, 3))
+    # inside box 0, every direction
+    o[0] = torch.rand((n, 3), generator=g) * torch.tensor([1.0, 0.5, 1.0]) \
+        + torch.tensor([-0.5, -0.25, 0.2])
+    d[0] = torch.randn((n, 3), generator=g)
+    # grazing box 1: along its faces y = +-1 and z = 1.5, and through its edges
+    s = torch.linspace(-1.0, 1.0, n)
+    o[1, :, 0] = 5.0
+    o[1, :, 1] = torch.where(torch.arange(n) % 2 == 0, 1.0, -1.0)
+    o[1, :, 2] = 0.75 + 0.75 * s
+    d[1, :, 0] = 1.0
+    o[1, ::3, 2] = 1.5
+    d[1, ::3, 1] = 1e-12
+    # box 2 behind the rays, box 1 ahead of some
+    o[2] = torch.tensor([-12.0, 5.0, 0.8]) + torch.rand((n, 3), generator=g) * 0.1
+    d[2] = torch.tensor([1.0, -0.25, 0.0]) + torch.randn((n, 3), generator=g) * 0.02
+    # a tiny box 40 m away: rays aimed at points of its faces
+    target = torch.tensor([40.0, 10.0, 1.0]) + (torch.rand((n, 3), generator=g) - 0.5) * 2e-3
+    o[3] = torch.tensor([5.0, 5.0, 1.0])
+    d[3] = target - o[3]
+    # the axes and their diagonals, with exact zeros
+    axes = torch.tensor([[1.0, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0], [0, 0, -1],
+                         [1, 1, 0], [1, -1, 0], [-1, 1, 0], [-1, -1, 0]])
+    o[4] = torch.tensor([100.0, 100.0, 1.0])
+    d[4] = axes[torch.arange(n) % len(axes)]
+    # box 8's corner C: rays from 12 m away along the sphere's tangent at C,
+    # turned towards the centre by 0-0.5 mrad
+    x, y, yaw, ex, ey, top, base = pose[8].tolist()
+    rot = torch.tensor([[math.cos(yaw), -math.sin(yaw)], [math.sin(yaw), math.cos(yaw)]])
+    corner = torch.cat([torch.tensor([x, y]) + rot @ torch.tensor([ex, ey]),
+                        torch.tensor([top])])
+    radial = corner - torch.tensor([x, y, 0.5 * (top + base)])
+    tangent = torch.linalg.cross(radial, torch.tensor([0.0, 0.0, 1.0]))
+    tangent = tangent / tangent.norm()
+    o[5] = corner - 12.0 * tangent
+    turn = torch.linspace(0.0, 5e-4, n)[:, None]
+    d[5] = tangent - turn * radial / radial.norm()
+    d = d / d.norm(dim=-1, keepdim=True)
+    act = torch.ones((1, len(pose)), dtype=torch.bool)
+    return o.reshape(1, -1, 3), d.reshape(1, -1, 3), k2.box_table(pose[None], act)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [(96, 16), (192, 8), (48, 32), None])
+def test_k2_adversarial_rays_match_plain_on_card(card, grid):
+    """The cull's hard cases (tests/test_torch_raycast.py holds the plain
+    cull to them) on the kernel: t and idx bit-equal to the plain version."""
+    o, d, table = adversarial_rays()
+    idx = _k2_equal(card, o, d, table, grid).cpu()
+    assert bool((idx[0, :256] == 0).all())                # the origins inside box 0
+    assert 100 < int((idx[0, 5 * 256:] == 8).sum()) < 256  # the fan at the corner
+
+
+@pytest.mark.cuda
+def test_k2_all_rows_inactive_and_ragged_grid_on_card(card):
+    o, d, table = _camera_scene(2, 37, 45, 40, seed=1)     # no multiple of a tile
+    _k2_equal(card, o, d, table, (37, 45))
+    _k2_equal(card, o[:, :-77].contiguous(), d[:, :-77].contiguous(), table, None)
+    table[..., 7] = 0.0
+    idx = _k2_equal(card, o, d, table, (37, 45))
+    assert bool((idx == -1).all())
+
+
+def _prim_rows(n_worlds, n, centre, spread, seed):
+    """n random primitives a world (thick segments and oriented boxes, every
+    bit of the birdview) within spread metres of centre (B, 2)."""
+    g = torch.Generator().manual_seed(seed)
+    a = centre[:, None] + (torch.rand((n_worlds, n, 2), generator=g) - 0.5) * spread
+    b = a + (torch.rand((n_worlds, n, 2), generator=g) - 0.5) * 6
+    bits = torch.randint(0, k1.n_bits(CFG.birdview), (n_worlds, n), generator=g).float()
+    hw = torch.rand((n_worlds, n), generator=g) * 0.5 + 0.05
+    valid = torch.rand((n_worlds, n), generator=g) > 0.1
+    segs = k1._seg_rows(a, b, hw, bits, valid)
+    yaw = (torch.rand((n_worlds, n), generator=g) - 0.5) * 6.28
+    ext = torch.rand((n_worlds, n, 2), generator=g) * 2 + 0.1
+    boxes = torch.stack([torch.ones_like(yaw), bits, a[..., 0], a[..., 1], torch.cos(yaw),
+                         torch.sin(yaw), ext[..., 0], ext[..., 1]], dim=-1)
+    boxes = torch.where(valid[..., None], boxes, segs)   # an unused row either way
+    kind = torch.rand((n_worlds, n, 1), generator=g) > 0.5
+    return torch.where(kind, segs, boxes).contiguous()
+
+
+def _k1_equal(card, prims, ego):
+    prims, ego = prims.to(card), ego.to(card)
+    plain = k1.birdview_bits_plain(CFG.birdview, prims, ego)
+    bits = k1.birdview_bits_cuda(CFG.birdview, prims, ego)
+    torch.cuda.synchronize()
+    assert torch.equal(bits, plain)
+    assert bool((plain != 0).any())
+
+
+@pytest.mark.cuda
+def test_k1_every_primitive_in_one_super_tile_on_card(card):
+    ego = k1.ego_table(torch.tensor([[10.0, -4.0], [-30.0, 50.0]]), torch.tensor([0.3, -2.0]))
+    wx, wy = k1.pixel_world_coords(CFG.birdview, ego)
+    W = CFG.birdview.width
+    corner = (20 * W + 20)                    # a pixel inside the first super-tile
+    centre = torch.stack([wx[:, corner], wy[:, corner]], dim=-1)
+    _k1_equal(card, _prim_rows(2, 700, centre, 3.0, seed=0), ego)
+
+
+@pytest.mark.cuda
+def test_k1_table_over_the_shared_budget_on_card(card):
+    ego = k1.ego_table(torch.tensor([[0.0, 0.0], [5.0, 7.0]]), torch.tensor([1.0, 0.0]))
+    wx, wy = k1.pixel_world_coords(CFG.birdview, ego)
+    centre = torch.stack([wx.mean(1), wy.mean(1)], dim=-1)
+    _k1_equal(card, _prim_rows(2, 4096 + 300, centre, 45.0, seed=1), ego)

@@ -12,6 +12,11 @@ starts near a face, where t is a difference of nearly equal numbers). The
 scenes cover inactive boxes, exact ties (duplicate boxes: the lowest index
 wins), direction components at and near zero, elevated boxes and ray
 counts that are no multiple of a block.
+
+K2's per-tile cull (`k2_tile_cull_plain`, the kernel's formula) must keep
+every box that the all-pairs plain version reports hit, for camera and
+lidar rays of a grid world and for adversarial rays; a grid passed to
+cast_scene changes nothing on the CPU.
 """
 
 import jax.numpy as jnp
@@ -22,9 +27,14 @@ import torch
 from thinktwice_tpu.maps.procedural import make_grid_town as jax_grid_town
 from thinktwice_tpu.ops.raycast_pallas import ray_boxes_pallas
 from thinktwice_tpu.sensors import raycast as jrc
+from thinktwice_tpu_torch.config import CameraConfig, Config, LidarConfig, SimConfig
 from thinktwice_tpu_torch.maps.procedural import make_grid_town
 from thinktwice_tpu_torch.ops import raycast_cuda as k2
+from thinktwice_tpu_torch.rollout import grid_world
 from thinktwice_tpu_torch.sensors import raycast as rc
+from thinktwice_tpu_torch.sensors.camera import cameras_from_state
+from thinktwice_tpu_torch.sensors.lidar import lidar_from_state
+from tests.test_torch_cuda import adversarial_rays
 
 torch.set_num_threads(1)
 
@@ -189,3 +199,130 @@ def test_cast_scene_matches_jax(towns):
     sem = port["semantic"][0].numpy()
     for cls in (rc.SEM_VEHICLE, rc.SEM_ROAD):
         assert (sem == cls).any(), cls
+
+
+# --------------------------------------------------------------------------
+# K2's per-tile cull
+
+
+def assert_cull_keeps_hits(o, d, table, grid):
+    """Every (ray, box) hit of the all-pairs plain version is a box that the
+    ray's tile keeps. -> the share of (tile, box) pairs kept."""
+    keep, ids = k2.k2_tile_cull_plain(o, d, table, grid)
+    _, idx = k2.ray_boxes_plain(o, d, table)
+    R = o.shape[1]
+    live = ids >= 0
+    tile_of = torch.full((R,), -1, dtype=torch.int64)
+    tile_of[ids[live]] = torch.nonzero(live)[:, 0]
+    assert bool((tile_of >= 0).all())                     # every ray has a tile
+    b, r = torch.nonzero(idx >= 0, as_tuple=True)
+    assert b.numel() > 0, "no ray hit a box"
+    kept = keep[b, tile_of[r], idx[b, r]]
+    assert bool(kept.all()), f"the cull dropped {int((~kept).sum())} hit boxes"
+    return float(keep.float().mean())
+
+
+class RecordK2:
+    """Records the rays, tables and grids that cast_scene hands to K2."""
+
+    def __init__(self, monkeypatch):
+        self.calls = []
+        real = rc.ray_boxes_table
+
+        def record(origins, dirs, table, grid=None):
+            self.calls.append((origins, dirs, table, grid))
+            return real(origins, dirs, table, grid=grid)
+
+        monkeypatch.setattr(rc, "ray_boxes_table", record)
+
+
+@pytest.fixture(scope="module")
+def sensor_world():
+    cfg = Config(sim=SimConfig(max_vehicles=64, max_walkers=8, max_route_len=256))
+    g = torch.Generator().manual_seed(11)
+    return grid_world(cfg, 2, 60, device="cpu", generator=g)
+
+
+@pytest.mark.parametrize("cam,lidar", [((64, 128), (16, 256)), ((40, 72), (12, 200)),
+                                       ((48, 96), (8, 512))])
+def test_tile_cull_keeps_every_hit_box_of_the_sensors(sensor_world, monkeypatch, cam, lidar):
+    """Image sizes that are multiples of the tile and ragged ones."""
+    town, state = sensor_world
+    rec = RecordK2(monkeypatch)
+    cameras_from_state(CameraConfig(height=cam[0], width=cam[1]), town, state)
+    lidar_from_state(LidarConfig(n_beams=lidar[0], n_azimuth=lidar[1]), town, state)
+    (co, cd, ct, cgrid), (lo, ld, lt, lgrid) = rec.calls
+    assert cgrid == cam and lgrid == lidar
+    for o, d, table, grid in ((co, cd, ct, cgrid), (lo, ld, lt, lgrid)):
+        assert assert_cull_keeps_hits(o, d, table, grid) < 0.25   # it culls
+        assert_cull_keeps_hits(o, d, table, None)
+
+
+@pytest.mark.parametrize("grid", [(96, 16), (192, 8), (48, 32), None])
+def test_tile_cull_keeps_every_hit_box_of_adversarial_rays(grid):
+    """(96, 16): a tile holds one group of adversarial rays; (192, 8) half
+    of one; (48, 32) two; None: 256 consecutive rays, one group."""
+    o, d, table = adversarial_rays()
+    assert_cull_keeps_hits(o, d, table, grid)
+    _, idx = k2.ray_boxes_plain(o, d, table)
+    by_tile = idx[0].reshape(6, 256)
+    assert bool((by_tile[0] == 0).all())                 # the origins inside box 0
+    assert bool((by_tile[1] == 1).any())                 # the grazing rays
+    assert not bool((by_tile[2] == 2).any())             # box 2 stays behind
+    assert bool((by_tile[3] == 3).any())                 # the tiny box
+    assert set(by_tile[4].tolist()) >= {4, 5, 6, 7}      # the axes
+    assert 100 < int((by_tile[5] == 8).sum()) < 256      # the fan at the corner
+    keep, _ = k2.k2_tile_cull_plain(o, d, table, (96, 16))
+    assert not bool(keep[0, 2, 2])                       # the box behind is culled
+
+
+def test_tile_cull_keeps_all_for_short_or_wide_rays():
+    o, d, pose, act = scene(8, 512, 12, True)
+    table = k2.box_table(torch.as_tensor(pose)[None], torch.as_tensor(act)[None])
+    o, d = torch.as_tensor(o)[None], torch.as_tensor(d)[None]
+    keep, _ = k2.k2_tile_cull_plain(o, d, table)          # random directions: too wide
+    assert torch.equal(keep, table[:, None, :, 7].expand_as(keep) > 0.5)
+    d = d.clone()
+    d[0, 0] = 0.0
+    d[0, 256:] = torch.tensor([1.0, 0.0, 0.0])
+    keep, _ = k2.k2_tile_cull_plain(o, d, table)          # a zero ray in tile 0
+    assert torch.equal(keep[0, 0], table[0, :, 7] > 0.5)
+    assert_cull_keeps_hits(o, d, table, None)
+
+
+def test_ray_tiles_cover_every_ray_once():
+    for R, grid in ((1000, None), (3 * 37 * 45, (37, 45)), (2 * 32 * 64, (32, 64)),
+                    (2 * 8 * 200, (8, 200)), (5 * 16 * 32, (16, 32))):
+        ids = k2.ray_tiles(R, grid)
+        assert ids.shape[1] == (256 if grid is None else k2.K2_TILE[0] * k2.K2_TILE[1])
+        assert torch.equal(torch.sort(ids[ids >= 0]).values, torch.arange(R))
+    ids = k2.ray_tiles(1000)
+    assert ids[0].tolist() == list(range(256)) and ids[3, 231:233].tolist() == [999, -1]
+    ids = k2.ray_tiles(2 * 32 * 64, (32, 64))
+    assert ids[0, 31:33].tolist() == [31, 64] and ids.shape == (8, 512)   # 16 x 32
+    with pytest.raises(ValueError, match="views"):
+        k2.ray_tiles(1000, (32, 64))
+    with pytest.raises(ValueError, match="views"):
+        k2.ray_tiles(2048, (0, 64))
+
+
+def test_grid_changes_nothing_on_the_cpu(sensor_world, monkeypatch):
+    town, state = sensor_world
+    rec = RecordK2(monkeypatch)
+    cam = CameraConfig(height=32, width=64)
+    cameras_from_state(cam, town, state)
+    o, d, table, grid = rec.calls[0]
+    V, W = state.traffic.pos.shape[1], state.walkers.pos.shape[1]
+    veh = rc.box_pose_from_state(state.traffic.pos, state.traffic.yaw,
+                                 state.traffic.extent, rc.VEHICLE_HEIGHT)
+    wlk = rc.box_pose_from_state(state.walkers.pos, state.walkers.yaw,
+                                 state.walkers.extent, rc.WALKER_HEIGHT)
+    a = rc.cast_scene(town, o, d, veh, state.traffic.active, wlk, state.walkers.active)
+    b = rc.cast_scene(town, o, d, veh, state.traffic.active, wlk, state.walkers.active,
+                      grid=grid)
+    assert grid == (32, 64) and V and W
+    for key in a:
+        assert torch.equal(a[key], b[key]), key
+    with pytest.raises(ValueError, match="views"):
+        rc.cast_scene(town, o, d, veh, state.traffic.active, wlk, state.walkers.active,
+                      grid=(33, 64))

@@ -6,7 +6,9 @@ A source compiles at first use into a shared library named by the hash of
 the source and the flags, so an edit rebuilds and an unchanged source is
 built once. `build_all` starts one nvcc per source at the same time and
 waits for all of them. Every source is built with `--fmad=false`, so a
-kernel does the same IEEE operations as its plain PyTorch version.
+kernel does the same IEEE operations as its plain PyTorch version. A kernel's
+constants that its Python side shares (a tile shape, a cull's slack) are
+defined in Python and passed to nvcc as -D macros, so one module owns them.
 """
 
 from __future__ import annotations
@@ -45,12 +47,17 @@ class CudaKernel:
     """One CUDA source, its built library and the count of its launches.
 
     functions maps each exported C function to (argtypes, restype). Every
-    source also exports `tt_error_string(int)`."""
+    source also exports `tt_error_string(int)`. defines maps macro names to
+    Python ints or floats, passed as -D flags (a float as a C float literal)."""
 
-    def __init__(self, name: str, source: str, functions: dict):
+    def __init__(self, name: str, source: str, functions: dict, defines: dict | None = None):
         self.name = name
         self.source = os.path.join(CSRC, source)
         self.functions = dict(functions)
+        self.flags = NVCC_FLAGS + [
+            f"-D{k}={v!r}f" if isinstance(v, float) else f"-D{k}={int(v)}"
+            for k, v in (defines or {}).items()
+        ]
         self.functions["tt_error_string"] = ([ci], ctypes.c_char_p)
         self.launches = 0
         self.build_log = ""
@@ -61,7 +68,7 @@ class CudaKernel:
     def path(self) -> str:
         with open(self.source, "rb") as f:
             data = f.read()
-        digest = hashlib.sha256(data + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        digest = hashlib.sha256(data + " ".join(self.flags).encode()).hexdigest()[:16]
         return os.path.join(BUILD_DIR, f"{self.name}-{digest}.so")
 
     def _start(self):
@@ -72,7 +79,7 @@ class CudaKernel:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, self.source],
+            [_nvcc(), *self.flags, "-o", tmp, self.source],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         return proc, tmp

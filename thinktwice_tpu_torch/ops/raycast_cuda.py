@@ -7,7 +7,13 @@
 2. `ray_boxes_table` gives the nearest hit of every ray of every world,
    t (B, R) float32 and the box index idx (B, R) int64 (MAX_T and -1 on a
    miss): the kernel for a CUDA tensor, the plain version for a CPU tensor.
-   There is no fallback from one to the other.
+   There is no fallback from one to the other. An optional grid (rows,
+   cols) says that the R rays are views x rows x cols in row-major order;
+   the kernel then culls the boxes once per tile (K2_TILE) of one view,
+   else once per 256 consecutive rays. The result does not depend on it.
+3. `k2_tile_cull_plain` is the kernel's per-tile cull in plain PyTorch:
+   each tile's kept boxes, for the tests (the cull keeps every box a ray of
+   the tile hits) and for counting the pairs the kernel tests.
 
 The CUDA source is compiled with nvcc for sm_90a at first use (`ops/nvcc.py`)
 and loaded with ctypes.
@@ -23,9 +29,22 @@ MAX_T = 1e6
 EPS = 1e-9
 ROW = 9
 PLAIN_PAIRS = 1 << 24   # (world, ray, box) triples per step of the plain version
+THREADS = 256           # threads of a block of the kernel; rays a block without a grid
+K2_TILE = (16, 32)      # a block's tile of a grid of rays, rows x cols (2 a thread)
+# the cull's slack; the kernel is built with these values
+CULL_ABS = 0.05         # metres added to every sphere's radius
+CULL_REL = 1e-3         # of the distance to the sphere's centre
+CULL_COS = 1e-4         # taken off the cone's cos half-angle
+CULL_MIN_COS = 0.05     # a wider cone keeps every active box
+CULL_MIN_DIR = 1e-3     # so does a tile with a shorter ray
 
 K2 = CudaKernel("raycast", "raycast.cu", {
-    "tt_ray_boxes": ([vp, vp, ci, ci, vp, ci, vp, vp, vp], ci),
+    "tt_ray_boxes": ([vp, vp, ci, ci, vp, ci, vp, vp, ci, ci, vp], ci),
+}, defines={
+    "K2_MAX_T": MAX_T, "K2_EPS": EPS, "K2_THREADS": THREADS,
+    "K2_TILE_H": K2_TILE[0], "K2_TILE_W": K2_TILE[1],
+    "K2_CULL_ABS": CULL_ABS, "K2_CULL_REL": CULL_REL, "K2_CULL_COS": CULL_COS,
+    "K2_CULL_MIN_COS": CULL_MIN_COS, "K2_CULL_MIN_DIR": CULL_MIN_DIR,
 })
 
 
@@ -87,10 +106,94 @@ def ray_boxes_plain(origins, dirs, table, chunk: int | None = None):
     return t_out, idx_out
 
 
-def ray_boxes_cuda(origins, dirs, table):
-    """Launch K2 on the current stream -> (t (B, R), idx (B, R))."""
+def check_grid(n_rays: int, grid) -> None:
+    """Raise unless grid (rows, cols) splits n_rays into whole views."""
+    if grid is None:
+        return
+    rows, cols = (int(v) for v in grid)
+    if rows <= 0 or cols <= 0 or n_rays % (rows * cols):
+        raise ValueError(f"grid {tuple(grid)} does not split {n_rays} rays into views")
+
+
+def ray_tiles(n_rays: int, grid=None):
+    """(T, rays a block) int64: the rays each block of the kernel takes, -1
+    where a slot has none. grid None: 256 consecutive rays a block; grid
+    (rows, cols): a K2_TILE tile of one view."""
+    check_grid(n_rays, grid)
+    if grid is None:
+        T = -(-n_rays // THREADS)
+        ids = torch.arange(T * THREADS).reshape(T, THREADS)
+        return torch.where(ids < n_rays, ids, torch.full_like(ids, -1))
+    rows, cols = grid
+    th, tw = K2_TILE
+    views = n_rays // (rows * cols)
+    tr, tc = -(-rows // th), -(-cols // tw)
+    blk = torch.arange(views * tr * tc)
+    view, rem = blk // (tr * tc), blk % (tr * tc)
+    tid = torch.arange(th * tw)
+    row = (rem // tc)[:, None] * th + tid // tw
+    col = (rem % tc)[:, None] * tw + tid % tw
+    ids = (view[:, None] * rows + row) * cols + col
+    return torch.where((row < rows) & (col < cols), ids, torch.full_like(ids, -1))
+
+
+def k2_tile_cull_plain(origins, dirs, table, grid=None):
+    """The kernel's per-tile cull in plain PyTorch -> (keep (B, T, N) bool,
+    ids (T, rays a block)): keep[b, t, j] when box j of world b survives the cull
+    of tile t, whose rays are ids[t] (-1: none). Each tile's rays become a
+    cone: a ball around the centre of their origins' bounding box and the
+    axis of their unit directions with the least cosine to it; a box is kept
+    when it is active and its bounding sphere, grown by the ball, CULL_ABS
+    and CULL_REL of its distance, meets the cone widened by CULL_COS. A tile
+    whose cone is wider than acos(CULL_MIN_COS) or that holds a ray shorter
+    than CULL_MIN_DIR keeps every active box. The same formula as the
+    kernel's; only its sums round in another order."""
+    B, R, _ = origins.shape
+    ids = ray_tiles(R, grid).to(origins.device)
+    live = ids >= 0
+    o = origins[:, ids.clamp_min(0)]                             # (B, T, rays, 3)
+    d = dirs[:, ids.clamp_min(0)]
+    dn = torch.sqrt((d * d).sum(-1))
+    bad = live & ~(dn >= CULL_MIN_DIR)
+    use = live & ~bad
+    u = torch.where(use[..., None], d / dn[..., None], torch.zeros_like(d))
+    big = torch.full_like(o, 3.0e38)
+    lo = torch.where(live[..., None], o, big).amin(2)            # (B, T, 3)
+    hi = torch.where(live[..., None], o, -big).amax(2)
+    s = u.sum(2)
+    sn = torch.sqrt((s * s).sum(-1))
+    axis = s / sn[..., None]
+    cos_i = torch.where(use, (u * axis[:, :, None]).sum(-1), torch.full_like(dn, 3.0e38))
+    cos_t = cos_i.amin(2) - CULL_COS                             # (B, T)
+    sin_t = torch.sqrt(torch.clamp_min(1.0 - cos_t * cos_t, 0.0))
+    centre = 0.5 * (lo + hi)
+    ext = hi - lo
+    r = 0.5 * torch.sqrt((ext * ext).sum(-1))
+    keep_all = bad.any(2) | ~(sn > 0) | ~(cos_t > CULL_MIN_COS) | ~(r <= 3.0e38)
+
+    p = table[:, None]                                           # (B, 1, N, 9)
+    hz = 0.5 * torch.abs(p[..., 6] - p[..., 8])
+    rad = torch.sqrt((p[..., 4] ** 2 + p[..., 5] ** 2) / (p[..., 2] ** 2 + p[..., 3] ** 2)
+                     + hz * hz)
+    v = torch.stack([p[..., 0], p[..., 1], 0.5 * (p[..., 6] + p[..., 8])], -1) \
+        - centre[:, :, None]                                     # (B, T, N, 3)
+    v2 = (v * v).sum(-1)
+    vn = torch.sqrt(v2)
+    big_r = rad + r[..., None] + CULL_ABS + CULL_REL * vn
+    along = (v * axis[:, :, None]).sum(-1)
+    meets = (vn <= big_r) | (along >= cos_t[..., None] * torch.sqrt(v2 - big_r * big_r)
+                             - sin_t[..., None] * big_r)
+    keep = (p[..., 7] > 0.5) & (keep_all[..., None] | meets)
+    return keep, ids
+
+
+def ray_boxes_cuda(origins, dirs, table, grid=None):
+    """Launch K2 on the current stream -> (t (B, R), idx (B, R)). grid
+    (rows, cols): a block culls for a K2_TILE tile of one view; without a
+    grid, for 256 consecutive rays."""
     B, R, _ = origins.shape
     N = table.shape[1]
+    check_grid(R, grid)
     check_tensor(origins, "origins", torch.float32, (B, R, 3))
     check_tensor(dirs, "dirs", torch.float32, (B, R, 3))
     check_tensor(table, "table", torch.float32, (B, N, ROW))
@@ -101,17 +204,21 @@ def ray_boxes_cuda(origins, dirs, table):
     idx = torch.empty((B, R), dtype=torch.int64, device=origins.device)
     with torch.cuda.device(origins.device):
         stream = torch.cuda.current_stream(origins.device).cuda_stream
+        rows, cols = grid if grid is not None else (0, 0)
         rc = lib.tt_ray_boxes(origins.data_ptr(), dirs.data_ptr(), B, R,
                               table.data_ptr(), N, t.data_ptr(), idx.data_ptr(),
-                              stream)
+                              rows, cols, stream)
     K2.check(rc)
     K2.launches += 1
     return t, idx
 
 
-def ray_boxes_table(origins, dirs, table):
+def ray_boxes_table(origins, dirs, table, grid=None):
     """Nearest box hit of every ray: K2 for tensors on the card, its plain
-    version for tensors on the CPU."""
+    version for tensors on the CPU. grid (rows, cols): the rays are views x
+    rows x cols, row-major (it changes which rays share the kernel's cull,
+    not the result)."""
     if origins.device.type == "cpu":
+        check_grid(origins.shape[1], grid)
         return ray_boxes_plain(origins, dirs, table)
-    return ray_boxes_cuda(origins, dirs, table)
+    return ray_boxes_cuda(origins, dirs, table, grid)

@@ -101,7 +101,7 @@ def render_cameras(cfg: CameraConfig, town: TownMap, ego_pos, ego_yaw,
     origins, dirs, R = camera_rays(cfg, ego_pos, ego_yaw)
     hit = cast_scene(town, origins, dirs, veh_pose, veh_active, wlk_pose,
                      wlk_active, extra_pose=extra[0], extra_active=extra[1],
-                     extra_class=extra[2])
+                     extra_class=extra[2], grid=(H, W))
     sem = hit["semantic"].reshape(B, N, H, W)
     rgb = PALETTE.to(origins.device)[sem] * hit["shade"].reshape(B, N, H, W)[..., None]
     # distance along the optical axis (z-depth), like a depth camera

@@ -71,7 +71,7 @@ def render_lidar(cfg: LidarConfig, town: TownMap, ego_pos, ego_yaw,
     origins = origin[:, None, :].expand_as(dirs).contiguous()
 
     hit = cast_scene(town, origins, dirs.contiguous(), veh_pose, veh_active,
-                     wlk_pose, wlk_active)
+                     wlk_pose, wlk_active, grid=(cfg.n_beams, cfg.n_azimuth))
     t = hit["t"]
     valid = hit["hit"] & (t > 0.5) & (t < cfg.max_range)
     pts_ego = dirs_ego[None] * t[..., None]

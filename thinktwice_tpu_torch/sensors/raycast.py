@@ -34,13 +34,13 @@ def ray_ground(origins, dirs):
     return torch.where((t > 0) & (dz < 0), t, torch.full_like(t, MAX_T))
 
 
-def ray_boxes(origins, dirs, box_pose, box_active):
+def ray_boxes(origins, dirs, box_pose, box_active, grid=None):
     """Slab test against N upright boxes per world: origins, dirs (B, R, 3);
     box_pose (B, N, 6) x, y, yaw, ex, ey, z_top or (B, N, 7) with a trailing
     z_base; box_active (B, N). -> (t_min (B, R), idx (B, R)) of the nearest
     hit, MAX_T and -1 where there is none. K2 on the card, its plain
-    version on the CPU."""
-    return ray_boxes_table(origins, dirs, box_table(box_pose, box_active))
+    version on the CPU; grid (rows, cols) as for ray_boxes_table."""
+    return ray_boxes_table(origins, dirs, box_table(box_pose, box_active), grid=grid)
 
 
 def sample_ground_semantic(town: TownMap, pts_xy):
@@ -67,12 +67,15 @@ def _pad7(pose):
 
 def cast_scene(town: TownMap, origins, dirs, veh_pose, veh_active,
                wlk_pose, wlk_active, extra_pose=None, extra_active=None,
-               extra_class=None):
+               extra_class=None, grid=None):
     """Full scene intersection of B worlds.
 
     origins, dirs (B, R, 3) world frame; veh_pose (B, V, 6); wlk_pose
     (B, W, 6); the optional extra_pose (B, E, 7) are classed static boxes
     (traffic_light_boxes) with per-box semantic ids extra_class (B, E).
+    grid (rows, cols): the rays are views x rows x cols in row-major order
+    (a camera's pixels, a lidar's beams), which lets K2 cull boxes per tile;
+    the result does not depend on it.
     Returns dict: t (B, R) depth along the ray, semantic (B, R) int64,
     shade (B, R) in [0, 1], hit (B, R) bool."""
     B = origins.shape[0]
@@ -89,7 +92,7 @@ def cast_scene(town: TownMap, origins, dirs, veh_pose, veh_active,
         classes.append(extra_class.to(torch.int64))
     class_table = torch.cat(classes, dim=1)
     t_b, idx_b = ray_boxes(origins, dirs, torch.cat(poses, dim=1),
-                           torch.cat(actives, dim=1))
+                           torch.cat(actives, dim=1), grid=grid)
 
     hit_box = (idx_b >= 0) & (t_b <= t_g)
     hit_g = (t_g < MAX_T) & ~hit_box

@@ -91,6 +91,16 @@ def route_window(route, route_idx, n: int):
     return torch.gather(route, 1, idx[..., None].expand(-1, -1, route.shape[2]))
 
 
+def time_after_tick(state: WorldState, dt: float):
+    """(B,) seconds at the end of this tick, t + dt with t = tick x 0.05,
+    rounded once: the reference's XLA fuses the two into a multiply-add, and
+    rounding the product first differs by an ulp on many ticks, which
+    moves a timeout on its boundary by a tick."""
+    f32 = lambda v: float(torch.tensor(v, dtype=torch.float32))  # noqa: E731
+    exact = state.tick.to(torch.float64) * f32(0.05) + f32(dt)
+    return exact.to(torch.float32)
+
+
 def _freeze(done, new, old):
     """Keep old where the world is done; done (B,) broadcast over new."""
     d = done.reshape(done.shape + (1,) * (new.dim() - 1))
@@ -230,7 +240,7 @@ def step_world(cfg: Config, town: TownMap, state: WorldState, control,
         cfg, town, state.criteria, ego0.pos, ego.pos, ego.yaw, ego.speed,
         ego.extent, traffic.pos, traffic.yaw, traffic.extent, traffic.active,
         walkers.pos, walkers.yaw, walkers.extent, walkers.active, tl_states,
-        state.route, state.route_cumlen, state.route_len_m, t + sim.dt,
+        state.route, state.route_cumlen, state.route_len_m, time_after_tick(state, sim.dt),
     )
     history = _push_history(state.history, traffic, walkers, tl_states)
 
