@@ -26,7 +26,6 @@ import argparse
 import dataclasses
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -51,18 +50,13 @@ K2_RTOL = 1e-5             # t of K2 against its plain version (see compare_k2)
 STUDENT_WORLDS, STUDENT_TICKS = 8, 40   # policy every tick; the ring warms at 10
 STUDENT_WARMUP = 3         # untimed student ticks before the timed run
 STUDENT_CTRL_TOL = 5e-2    # card vs CPU controls of the bfloat16 student
+EVAL_TOL = 1e-2            # card vs CPU record floats (scores, route_length, duration_game)
+EVAL_SEGMENT = 256         # ticks between the expert evaluation's done checks
+STUDENT_EVAL_STEPS, STUDENT_EVAL_SEGMENT = 40, 20
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -226,7 +220,7 @@ def breakdown(cfg, policy, town, states, g):
                     "10 ticks"))
 
 
-def device_busy(fn, what: str) -> str:
+def device_busy(fn, what: str, tag: str = "[breakdown]") -> str:
     """Wall time of fn() and the device's busy time under the profiler: the
     union of the kernels' and copies' intervals on the card (the CPU ops
     that launched them carry the same time again)."""
@@ -242,7 +236,7 @@ def device_busy(fn, what: str) -> str:
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
     if not kernels:
-        return f"[breakdown] {what}: device busy share not measured (no device time in the trace)"
+        return f"{tag} {what}: device busy share not measured (no device time in the trace)"
     busy_us, end = 0.0, float("-inf")
     for t0_us, t1_us in sorted((e.time_range.start, e.time_range.end) for e in kernels):
         if t1_us > end:
@@ -254,10 +248,207 @@ def device_busy(fn, what: str) -> str:
         row[0] += e.time_range.end - e.time_range.start
         row[1] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
-    return (f"[breakdown] {what} under the profiler: {wall * 1e3:.1f} ms wall, "
+    return (f"{tag} {what} under the profiler: {wall * 1e3:.1f} ms wall, "
             f"{busy_us / 1e3:.1f} ms device busy ({busy_us / 1e6 / wall:.1%}), "
             f"{len(kernels)} device kernels and copies; top: "
             + "; ".join(f"{name[:40]} {us / 1e3:.2f} ms x{n}" for name, (us, n) in top))
+
+
+# --------------------------------------------------------------------------
+# the route evaluator
+
+
+def small_config():
+    """The JAX suite's small_cfg capacities: the rehearsal's Roach rollout
+    and the card-vs-CPU evaluation."""
+    from thinktwice_tpu_torch.config import Config, SimConfig
+
+    return Config(sim=SimConfig(max_vehicles=16, max_walkers=8, max_lights=64,
+                                max_stop_signs=8, max_route_len=256, max_scenarios=8))
+
+
+def eval_routes_small():
+    """Three grid routes: a straight, one through the lit junction (100, 100)
+    that gets map-derived scenarios, and another straight."""
+    routes = []
+    for x0, y, length, n in ((8.0, -1.75, 60.0, 128), (70.0, 98.25, 70.0, 200),
+                             (20.0, 198.25, 50.0, 128)):
+        xs = np.linspace(x0, x0 + length, n)
+        routes.append(np.stack([xs, np.full_like(xs, y), np.zeros_like(xs)], 1)
+                      .astype(np.float32))
+    return routes, ["straight", "junction with scenarios", "straight 2"]
+
+
+def run_eval(cfg, town, routes, policy_fn, **kw):
+    """evaluate_routes into a temporary results file -> (global record,
+    records, batch log, wall seconds)."""
+    import tempfile
+
+    from thinktwice_tpu_torch.harness.evaluator import evaluate_routes
+    from thinktwice_tpu_torch.harness.statistics import load_results
+
+    log = []
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "results.json")
+        if town.device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g = evaluate_routes(cfg, town, routes, [str(i) for i in range(len(routes))],
+                            policy_fn, out_path=out, batch_log=log, **kw)
+        if town.device.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        records = load_results(out)["_checkpoint"]["records"]
+    return g, records, log, wall
+
+
+def compare_records(a, b, tag: str) -> float:
+    """Records of two runs: equal indices, statuses and infraction counts;
+    scores, route_length and duration_game within EVAL_TOL. -> worst diff."""
+    if [r["index"] for r in a] != [r["index"] for r in b]:
+        raise AssertionError(f"{tag}: the runs hold different routes")
+    worst = 0.0
+    for x, y in zip(a, b):
+        if x["status"] != y["status"]:
+            raise AssertionError(f"{tag}: route {x['index']} {x['status']!r} vs {y['status']!r}")
+        if ({k: len(v) for k, v in x["infractions"].items()}
+                != {k: len(v) for k, v in y["infractions"].items()}):
+            raise AssertionError(f"{tag}: route {x['index']} infraction counts differ")
+        for v, w in ([(x["scores"][k], y["scores"][k]) for k in x["scores"]]
+                     + [(x["meta"][k], y["meta"][k]) for k in ("route_length", "duration_game")]):
+            if not np.isfinite(v):
+                raise AssertionError(f"{tag}: a record field is not finite")
+            worst = max(worst, abs(v - w))
+    if worst > EVAL_TOL:
+        raise AssertionError(f"{tag}: record floats differ by {worst}")
+    return worst
+
+
+def eval_card_vs_cpu(policy_cpu, device, small: bool):
+    """A small evaluation run once on `device` and once on the CPU with the
+    same draws (drawn on the CPU): the autopilot, and the roach_rl6 expert
+    at reduced capacities, 3 routes in batches of 2 (the last one padded),
+    one with map-derived scenarios. The records must be equal in every
+    count and status and within EVAL_TOL in every float but duration_system."""
+    from thinktwice_tpu_torch.agents.autopilot import autopilot_control
+    from thinktwice_tpu_torch.agents.expert import make_expert_policy
+    from thinktwice_tpu_torch.harness.evaluator import (
+        GeneratorDraws, build_route_scenarios, derive_map_triggers)
+    from thinktwice_tpu_torch.maps.procedural import make_grid_town
+    from thinktwice_tpu_torch.weights import load_roach_policy
+
+    cfg = small_config()
+    routes, _ = eval_routes_small()
+    max_steps, segment = (16, 8) if small else (96, 32)
+    for name in ("autopilot", "expert"):
+        runs = {}
+        for dev in (torch.device(device), torch.device("cpu")):
+            town = make_grid_town(n_blocks=2, block=100.0, device=dev)
+            scen = build_route_scenarios(cfg, routes[1], derive_map_triggers(town, routes[1]),
+                                         device=dev)
+            if name == "autopilot":
+                fn = autopilot_control
+            else:
+                pol = policy_cpu if dev.type == "cpu" else load_roach_policy(WEIGHTS, cfg, dev)
+                fn = make_expert_policy(cfg, pol)
+            runs[dev.type] = run_eval(
+                cfg, town, routes, fn, n_vehicles=8, max_steps=max_steps, worlds_per_batch=2,
+                segment_steps=segment, policy_every=2, scenarios=[None, scen, None],
+                draws=GeneratorDraws(5, device="cpu"))
+        (g_d, rec_d, log_d, wall_d), (g_c, rec_c, _, wall_c) = runs[device.type], runs["cpu"]
+        worst = compare_records(rec_d, rec_c, f"eval card vs cpu, {name}")
+        log(f"[eval card vs cpu] {name}: {len(rec_d)} routes in batches of 2 "
+            f"({[b['routes'] for b in log_d]} routes, {log_d[0]['ticks']} ticks each), "
+            f"statuses {[r['status'] for r in rec_d]}, driving score "
+            f"{g_d['scores']['score_composed']:.4f} on {device.type} and "
+            f"{g_c['scores']['score_composed']:.4f} on cpu; record floats within {worst:.2e} "
+            f"(limit {EVAL_TOL}); {wall_d:.2f} s on {device.type}, {wall_c:.2f} s on cpu")
+
+
+def eval_summary(g, records) -> str:
+    infr = {k: sum(len(r["infractions"][k]) for r in records) for k in records[0]["infractions"]}
+    statuses = {}
+    for r in records:
+        statuses[r["status"]] = statuses.get(r["status"], 0) + 1
+    s = g["scores"]
+    return (f"driving score {s['score_composed']:.4f}, route completion {s['score_route']:.4f}, "
+            f"infraction penalty {s['score_penalty']:.4f}; statuses {statuses}; "
+            f"infractions {{{', '.join(f'{k}: {v}' for k, v in infr.items() if v)}}}")
+
+
+def eval_path(cfg, device, n_worlds: int, policy_fn, **kw):
+    """An evaluation main path: evaluate_routes over n_worlds grid routes in
+    one batch, with K1's and K2's counts set to 0 just before and read just
+    after. -> (global record, records, ticks run, seconds, wall with the
+    results file, K1 launches, K2 launches)."""
+    from thinktwice_tpu_torch.maps.procedural import make_grid_town
+    from thinktwice_tpu_torch.ops.birdview_cuda import K1
+    from thinktwice_tpu_torch.ops.raycast_cuda import K2
+    from thinktwice_tpu_torch.rollout import grid_routes
+
+    town = make_grid_town(n_blocks=2, block=100.0, device=device)
+    routes = list(grid_routes(n_worlds, cfg.sim.max_route_len))
+    K1.launches = K2.launches = 0
+    g, records, blog, wall = run_eval(cfg, town, routes, policy_fn,
+                                      worlds_per_batch=n_worlds, **kw)
+    k1_n, k2_n = K1.launches, K2.launches
+    if len(records) != n_worlds:
+        raise AssertionError("the evaluation lost a route")
+    if not all(np.isfinite(v) for r in records for v in r["scores"].values()):
+        raise AssertionError("an evaluation score is not finite")
+    return g, records, blog[0]["ticks"], blog[0]["seconds"], wall, k1_n, k2_n
+
+
+def eval_expert(cfg, policy, device, n_worlds: int, n_vehicles: int, card: str,
+                max_steps=None, segment=EVAL_SEGMENT):
+    """The expert evaluation: the roach_rl6 expert every 2 ticks, to every
+    world's done or the timeout bound (or max_steps)."""
+    from thinktwice_tpu_torch.agents.expert import make_expert_policy
+
+    g, records, ticks, seconds, wall, k1_n, k2_n = eval_path(
+        cfg, device, n_worlds, make_expert_policy(cfg, policy), n_vehicles=n_vehicles,
+        segment_steps=segment, policy_every=2, seed=42, max_steps=max_steps)
+    expected = ticks // 2 if device.type == "cuda" else 0
+    log(f"[eval expert] {n_worlds} grid routes in 1 batch of {n_worlds} worlds, {n_vehicles} "
+        f"vehicles, policy every 2 ticks, {segment}-tick segments"
+        + (f", at most {max_steps} ticks" if max_steps else ", to done or the timeout bound")
+        + f": {ticks} ticks run in {seconds:.3f} s ({wall:.3f} s with the results file): "
+        f"{n_worlds * ticks / seconds:.1f} env-steps/s on {card}; K1 launches {k1_n} "
+        f"(expected {expected}), K2 launches {k2_n}")
+    log(f"[eval expert] {eval_summary(g, records)}; game time "
+        f"{min(r['meta']['duration_game'] for r in records):.2f}-"
+        f"{max(r['meta']['duration_game'] for r in records):.2f} s")
+    if k1_n != expected or k2_n != 0 or (device.type == "cuda" and k1_n == 0):
+        raise AssertionError(f"the expert evaluation launched K1 {k1_n} times, expected {expected}")
+    if device.type == "cuda":
+        log(device_busy(lambda: eval_path(cfg, device, n_worlds, make_expert_policy(cfg, policy),
+                                          n_vehicles=n_vehicles, segment_steps=32,
+                                          policy_every=2, seed=42, max_steps=32),
+                        f"a {n_worlds}-world evaluation of 32 ticks", "[eval breakdown]"))
+
+
+def eval_student(cfg, model, device, n_worlds: int, n_vehicles: int, card: str,
+                 max_steps=STUDENT_EVAL_STEPS, segment=STUDENT_EVAL_SEGMENT):
+    """The student evaluation: the student adapter (its DriverState the
+    carry) every tick for max_steps ticks."""
+    from thinktwice_tpu_torch.agents.thinktwice_driver import make_student_policy
+
+    policy_fn, policy_init = make_student_policy(cfg, model, policy_every=1)
+    g, records, ticks, seconds, wall, k1_n, k2_n = eval_path(
+        cfg, device, n_worlds, policy_fn, policy_init=policy_init, n_vehicles=n_vehicles,
+        max_steps=max_steps, segment_steps=segment, seed=43)
+    expected = 2 * ticks if device.type == "cuda" else 0
+    log(f"[eval student] {n_worlds} grid routes in 1 batch of {n_worlds} worlds, {n_vehicles} "
+        f"vehicles, policy every tick, {segment}-tick segments, at most {max_steps} ticks: "
+        f"{ticks} ticks run in {seconds:.3f} s ({wall:.3f} s with the results file): "
+        f"{n_worlds * ticks / seconds:.2f} env-steps/s on {card}; K2 launches {k2_n} "
+        f"(expected {expected}), K1 launches {k1_n}")
+    log(f"[eval student] {eval_summary(g, records)}")
+    if k2_n != expected or k1_n != 0 or (device.type == "cuda" and k2_n == 0):
+        raise AssertionError(
+            f"the student evaluation launched K2 {k2_n} times, expected {expected}")
+    if ticks != max_steps:
+        raise AssertionError("the student evaluation stopped early")
 
 
 # --------------------------------------------------------------------------
@@ -541,6 +732,7 @@ def student_phases(args, on_card: bool, device, card: str):
         if k1_n or k2_n:
             raise AssertionError("a kernel launched on the CPU")
         check_student_run(final, controls, 4)
+        eval_student(cfg, model, device, 2, 6, card, max_steps=4, segment=2)
         return None
 
     cfg = bench_config()
@@ -599,6 +791,7 @@ def student_phases(args, on_card: bool, device, card: str):
     k2_row["max_abs_err"] = max(err, compare_k2(inputs, f"after {STUDENT_TICKS} ticks"))
     del inputs
     student_breakdown(cfg, model, town, final, g)
+    eval_student(cfg, model, device, STUDENT_WORLDS, N_VEHICLES, card)
     return k2_row
 
 
@@ -616,7 +809,8 @@ def main() -> int:
         log("no CUDA device: this smoke test needs an NVIDIA card")
         return 2
 
-    from thinktwice_tpu_torch.config import Config, SimConfig, bench_config
+    from thinktwice_tpu_torch.bench import card_line
+    from thinktwice_tpu_torch.config import bench_config
     from thinktwice_tpu_torch.ops.birdview_cuda import K1
     from thinktwice_tpu_torch.ops.nvcc import build_all
     from thinktwice_tpu_torch.ops.raycast_cuda import K2
@@ -626,9 +820,7 @@ def main() -> int:
 
     torch.manual_seed(0)
     if args.small:
-        cfg = Config(sim=SimConfig(max_vehicles=16, max_walkers=8, max_lights=64,
-                                   max_stop_signs=8, max_route_len=256,
-                                   max_scenarios=8))
+        cfg = small_config()
         n_worlds, n_ticks, n_vehicles = 2, 4, 8
     else:
         cfg = bench_config()
@@ -639,7 +831,7 @@ def main() -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         kind = torch.cuda.get_device_name(0)
-        card = card_line()
+        card = card_line(torch.device("cuda"))
         log(f"[card] {kind}; nvidia-smi: {card}; torch {torch.__version__} "
             f"cuda {torch.version.cuda}; TF32 off for matmul and cuDNN")
     else:
@@ -731,18 +923,27 @@ def main() -> int:
         compare_k1(cfg.birdview, town, final, f"after {n_ticks} ticks")
         breakdown(cfg, policy, town, final, g)
         k1_row["launches"] = launches
-    del town, states0, warm, final, events, controls, policy
+    del town, states0, warm, final, events, controls
+
+    # ---- phase 6: the route evaluator: card against CPU, then the expert
+    # evaluation, the next main path ----------------------------------------
+    eval_card_vs_cpu(policy_cpu if on_card else policy, device, args.small)
+    if args.small:
+        eval_expert(cfg, policy, device, n_worlds, n_vehicles, card, max_steps=8, segment=4)
+    else:
+        eval_expert(cfg, policy, device, n_worlds, n_vehicles, card)
+    del policy
     if on_card:
         torch.cuda.empty_cache()
 
-    # ---- phase 6: the ThinkTwice student, the second main path --------------
+    # ---- phase 7: the ThinkTwice student and its evaluation -----------------
     k2_row = student_phases(args, on_card, device, card)
 
     if on_card:
         keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         log(json.dumps({"kernels": [{k: row[k] for k in keys} for row in (k1_row, k2_row)]}))
-        log(card_line())
+        log(card_line(device))
         device_info = {"platform": "gpu", "kind": kind,
                        "count": torch.cuda.device_count()}
     else:

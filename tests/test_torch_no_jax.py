@@ -3,9 +3,12 @@
 A machine with a card may have torch, numpy and the CUDA toolkit and none of
 jax, flax, optax, orbax, msgpack, ninja or triton. In a subprocess where
 those modules (and the JAX package) cannot be imported, every module of
-thinktwice_tpu_torch imports and `chip_smoke.py --device cpu --small` runs
-to exit 0, the Roach rollout and the tiny student's closed loop included;
-nothing reaches torch.utils.cpp_extension.
+thinktwice_tpu_torch imports; `python -m thinktwice_tpu_torch.cli evaluate
+--device cpu` scores two routes and `python -m thinktwice_tpu_torch.bench
+--device cpu` prints its record at a tiny size; and `chip_smoke.py --device
+cpu --small` runs to exit 0, the Roach rollout, the tiny student's closed
+loop and the three evaluator phases included; nothing reaches
+torch.utils.cpp_extension.
 """
 
 import json
@@ -29,6 +32,11 @@ names = [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 print("imported", len(names), "modules", flush=True)
+sys.argv = ["cli", "evaluate", "--device", "cpu", "--n-routes", "2", "--batch", "2",
+            "--vehicles", "2", "--route-len", "64"]
+runpy.run_module("thinktwice_tpu_torch.cli", run_name="__main__")
+sys.argv = ["bench", "--device", "cpu", "--worlds", "2", "--steps", "4"]
+runpy.run_module("thinktwice_tpu_torch.bench", run_name="__main__")
 sys.argv = ["chip_smoke.py", "--device", "cpu", "--small"]
 try:
     runpy.run_path("chip_smoke.py", run_name="__main__")
@@ -52,6 +60,14 @@ def test_port_and_smoke_run_without_jax_stack():
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
     lines = proc.stdout.strip().splitlines()
     assert any(line.startswith("imported ") for line in lines)
+    scores = json.loads(proc.stdout[proc.stdout.index("{"):proc.stdout.index("}") + 1])
+    assert set(scores) == {"score_route", "score_penalty", "score_composed"}
+    bench = next(json.loads(line) for line in lines if line.startswith('{"metric"'))
+    assert bench["metric"] == "env_steps_per_sec_2worlds_roach_grid"
+    assert lines[lines.index(json.dumps(bench)) + 1] == "cpu"
+    for tag in ("[eval card vs cpu] autopilot", "[eval card vs cpu] expert", "[eval expert]",
+                "[eval student]"):
+        assert any(line.startswith(tag) for line in lines), tag
     assert any(line.startswith("[rollout] ") for line in lines)
     assert any(line.startswith("[student] 2 worlds x 4 ticks") for line in lines)
     assert "cpp_extension loaded: False" in lines

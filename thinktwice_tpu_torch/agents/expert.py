@@ -136,3 +136,14 @@ def expert_control(cfg: Config, policy: RoachPolicy, town: TownMap,
     }
     return control, supervision
 
+
+def make_expert_policy(cfg: Config, policy: RoachPolicy):
+    """The Roach expert as an evaluator policy: policy_fn(cfg, town, state)
+    -> (B, 3) control, one `expert_control` (one K1 launch on the card) a
+    call."""
+
+    def policy_fn(cfg_, town, state):
+        control, _ = expert_control(cfg, policy, town, state)
+        return control
+
+    return policy_fn

@@ -33,7 +33,7 @@ from thinktwice_tpu_torch.sensors.lidar import (
     merge_sweeps,
     sample_lidar_draws,
 )
-from thinktwice_tpu_torch.sim.state import WorldState
+from thinktwice_tpu_torch.sim.state import WorldState, tree_map
 from thinktwice_tpu_torch.sim.step import StepDraws, step_world
 from thinktwice_tpu_torch.train.collect import IMAGENET_MEAN, IMAGENET_STD, route_command
 
@@ -167,6 +167,30 @@ def make_thinktwice_driver(cfg: Config, model: ThinkTwiceModel):
         return control, dataclasses.replace(driver, agent=agent, tick=driver.tick + 1)
 
     return policy
+
+
+def make_student_policy(cfg: Config, model: ThinkTwiceModel, policy_every: int = 1):
+    """The student as a stateful evaluator policy -> (policy_fn, policy_init):
+    policy_fn(cfg, town, state, driver, draws) -> (control (B, 3), driver')
+    and policy_init(n_worlds) -> the batch's DriverState, whose history ring
+    holds HIST_TICKS // policy_every calls so that the history sweep stays
+    0.5 s old. A batch of worlds resets together, so the driver's one shared
+    tick serves every world. policy_fn.sample_draws(n_worlds, generator)
+    draws one call's SensorDraws on the generator's device; the evaluator's
+    seeded provider calls it for every policy call."""
+    drive = make_thinktwice_driver(cfg, model)
+    dev = next(model.parameters()).device
+
+    def policy_fn(cfg_, town, state, driver, draws):
+        return drive(town, state, driver, draws=tree_map(lambda x: x.to(dev), draws))
+
+    def policy_init(n_worlds: int) -> DriverState:
+        return driver_init(cfg, n_worlds, model.n_sweeps,
+                           hist_len=HIST_TICKS // policy_every, device=dev)
+
+    policy_fn.sample_draws = lambda n_worlds, generator: sample_sensor_draws(
+        cfg, n_worlds, generator.device, generator)
+    return policy_fn, policy_init
 
 
 def controls_from_outputs(outs, agent: tw.AgentState, speed, tp):

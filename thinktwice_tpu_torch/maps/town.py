@@ -125,3 +125,79 @@ def pad_rows(a: np.ndarray, n: int, fill: float = 0.0) -> np.ndarray:
         return a[:n]
     pad_shape = (n - len(a),) + a.shape[1:]
     return np.concatenate([a, np.full(pad_shape, fill, a.dtype)], axis=0)
+
+
+# Route densification (host side, numpy): posed keypoints (x, y, yaw) of a
+# route XML through a C1 Hermite spline, the lane-following path without
+# OpenDRIVE.
+
+def _hermite(p0, t0, p1, t1, s):
+    """Cubic Hermite between posed points. s in [0,1], shape (K,)."""
+    h00 = 2 * s**3 - 3 * s**2 + 1
+    h10 = s**3 - 2 * s**2 + s
+    h01 = -2 * s**3 + 3 * s**2
+    h11 = s**3 - s**2
+    return (
+        h00[:, None] * p0 + h10[:, None] * t0 + h01[:, None] * p1 + h11[:, None] * t1
+    )
+
+
+def interpolate_route(
+    keypoints_xy: np.ndarray,
+    keypoints_yaw_deg: np.ndarray,
+    spacing: float = 1.0,
+    max_len: int | None = None,
+) -> np.ndarray:
+    """Dense route from posed keypoints.
+
+    Returns (N, 3) array of (x, y, yaw_rad) at ~`spacing` meters. If max_len
+    is given, pads (repeating the final point) or truncates to exactly max_len.
+    """
+    kp = np.asarray(keypoints_xy, np.float64)
+    yaw = np.deg2rad(np.asarray(keypoints_yaw_deg, np.float64))
+    pts = []
+    for i in range(len(kp) - 1):
+        p0, p1 = kp[i], kp[i + 1]
+        d = np.linalg.norm(p1 - p0)
+        if d < 1e-6:
+            continue
+        # tangent magnitude = segment length gives a taut, lane-like spline
+        t0 = d * np.array([np.cos(yaw[i]), np.sin(yaw[i])])
+        t1 = d * np.array([np.cos(yaw[i + 1]), np.sin(yaw[i + 1])])
+        n = max(int(np.ceil(d / spacing)), 1)
+        s = np.arange(n) / n
+        pts.append(_hermite(p0, t0, p1, t1, s))
+    pts.append(kp[-1:])
+    dense = np.concatenate(pts, axis=0)
+    # headings from finite differences
+    diffs = np.diff(dense, axis=0)
+    hdg = np.arctan2(diffs[:, 1], diffs[:, 0])
+    hdg = np.concatenate([hdg, hdg[-1:]])
+    route = np.concatenate([dense, hdg[:, None]], axis=1).astype(np.float32)
+    if max_len is not None:
+        if len(route) >= max_len:
+            route = route[:max_len]
+        else:
+            pad = np.repeat(route[-1:], max_len - len(route), axis=0)
+            route = np.concatenate([route, pad], axis=0)
+    return route
+
+
+def densify_polyline(xy: np.ndarray, spacing: float = 2.0) -> np.ndarray:
+    """Piecewise-linear resample of a polyline at ~spacing meters -> (N, 2)."""
+    xy = np.asarray(xy, np.float64)
+    seglen = np.linalg.norm(np.diff(xy, axis=0), axis=1)
+    cum = np.concatenate([[0.0], np.cumsum(seglen)])
+    total = cum[-1]
+    n = max(int(np.floor(total / spacing)) + 1, 2)
+    s = np.linspace(0.0, total, n)
+    out = np.stack(
+        [np.interp(s, cum, xy[:, 0]), np.interp(s, cum, xy[:, 1])], axis=1
+    )
+    return out.astype(np.float32)
+
+
+def route_length(route_xyyaw: np.ndarray) -> float:
+    """Polyline length in meters of an (N, >=2) route array."""
+    d = np.diff(np.asarray(route_xyyaw)[:, :2], axis=0)
+    return float(np.linalg.norm(d, axis=1).sum())
