@@ -9,7 +9,13 @@ against its CPU run on small inputs, and drives both rollouts:
   expert, policy every 2 ticks);
 - the ThinkTwice student's closed loop at the full width of the
   student_rl6 archive (8 worlds, 4 cameras of 256 x 512 and a 64 x 1024
-  lidar through K2, ResNet-50 two-sweep model, policy every tick, 40 ticks).
+  lidar through K2, ResNet-50 two-sweep model, policy every tick, 40 ticks);
+- the student's training: the roach_rl6 expert collects in the loop (K1 in
+  the expert, K2 in the cameras and the lidar) one world's chunks of 13
+  frames, 8 two-sweep examples each, and `loop.train` takes 3 AdamW steps
+  of student_rl6 at full width on them; then one train step of a small
+  student on the card against the CPU, and the parameter archive read
+  back.
 
     python3 chip_smoke.py                       # on a machine with one card
     python3 chip_smoke.py --device cpu --small  # CPU rehearsal, plain versions
@@ -23,6 +29,7 @@ and as the last line {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -53,6 +60,10 @@ STUDENT_CTRL_TOL = 5e-2    # card vs CPU controls of the bfloat16 student
 EVAL_TOL = 1e-2            # card vs CPU record floats (scores, route_length, duration_game)
 EVAL_SEGMENT = 256         # ticks between the expert evaluation's done checks
 STUDENT_EVAL_STEPS, STUDENT_EVAL_SEGMENT = 40, 20
+TRAIN_FRAMES = 13          # frames a chunk: 13 - 4 - 1 = 8 two-sweep examples
+TRAIN_STEPS = 3            # optimizer steps of student_rl6
+TRAIN_TOL = 1e-3           # card vs CPU float32 train step: losses, grad_norm, the update
+GRAD_TOL, GRAD_COS = 1e-2, 0.99   # ... its gradient: of the norm; each leaf's cosine
 
 
 def log(msg: str) -> None:
@@ -478,25 +489,38 @@ def tiny_student(cfg, device):
                            n_cams=cfg.camera.n_cams).to(device).eval()
 
 
-class K2Inputs:
-    """Records the rays and box tables that cast_scene hands to K2 (or its
-    plain version) while the block runs."""
+class Spy:
+    """Records the arguments (and results) of module.name's calls while the
+    block runs, the last `keep` of them (all with keep None)."""
+
+    def __init__(self, module, name: str, keep: int | None = None):
+        self._mod, self._name, self._keep = module, name, keep
 
     def __enter__(self):
-        from thinktwice_tpu_torch.sensors import raycast
+        self._real = getattr(self._mod, self._name)
+        self.calls, self.results = [], []
 
-        self._mod, self._real = raycast, raycast.ray_boxes_table
-        self.calls = []
+        def record(*args, **kwargs):
+            out = self._real(*args, **kwargs)
+            self.calls.append(args + tuple(kwargs.values()))
+            self.results.append(out)
+            if self._keep is not None:
+                del self.calls[:-self._keep], self.results[:-self._keep]
+            return out
 
-        def record(origins, dirs, table, grid=None):
-            self.calls.append((origins, dirs, table, grid))
-            return self._real(origins, dirs, table, grid=grid)
-
-        raycast.ray_boxes_table = record
+        setattr(self._mod, self._name, record)
         return self
 
     def __exit__(self, *exc):
-        self._mod.ray_boxes_table = self._real
+        setattr(self._mod, self._name, self._real)
+
+
+def K2Inputs(keep: int | None = None):
+    """Records the rays and box tables (origins, dirs, table, grid) that
+    cast_scene hands to K2 (or its plain version) while the block runs."""
+    from thinktwice_tpu_torch.sensors import raycast
+
+    return Spy(raycast, "ray_boxes_table", keep)
 
 
 def k2_inputs(cfg, town, states):
@@ -795,6 +819,370 @@ def student_phases(args, on_card: bool, device, card: str):
     return k2_row
 
 
+# --------------------------------------------------------------------------
+# the student's training
+
+
+def train_small_config(cfg):
+    """A small student (ResNet-10, one refine layer, 64 BEV channels, 16
+    depth bins) for the collected batch's cameras and lidar, stepped at lr
+    1e-3 from its first step (no warmup): its update of 1e-3 lies far
+    above the float32 spacing of the parameters it changes, where the
+    first step of the default schedule (1e-7) moves them by a few ulps."""
+    from thinktwice_tpu_torch.config import ModelConfig, TrainConfig
+
+    return cfg.replace(
+        model=ModelConfig(img_height=cfg.camera.height, img_width=cfg.camera.width,
+                          refine_num=1, bev_channels=64, n_depth_bins=16,
+                          lidar_pillar_grid=84),
+        train=TrainConfig(lr=1e-3, warmup_steps=0))
+
+
+def slice_batch(batch: dict, n: int) -> dict:
+    """The first n examples of a training batch (per-camera maps: their
+    first n * 4 rows)."""
+    B = batch["imgs"].shape[0]
+
+    def one(x):
+        if isinstance(x, tuple):
+            return tuple(one(y) for y in x)
+        return x[:n] if x.shape[0] == B else x[:n * (x.shape[0] // B)]
+
+    return {k: one(v) for k, v in batch.items()}
+
+
+def to_device(batch: dict, device) -> dict:
+    return {k: tuple(x.to(device) for x in v) if isinstance(v, tuple) else v.to(device)
+            for k, v in batch.items()}
+
+
+@contextlib.contextmanager
+def float32_compute():
+    """The student's bfloat16 compute switched to float32 while the block
+    runs (its modules read the dtype when built and when run)."""
+    from thinktwice_tpu_torch.models import encoder_decoder, lidarnet, lss
+
+    mods = (encoder_decoder, lidarnet, lss)
+    saved = [m.BF16 for m in mods]
+    for m in mods:
+        m.BF16 = torch.float32
+    try:
+        yield
+    finally:
+        for m, v in zip(mods, saved):
+            m.BF16 = v
+
+
+def train_step_card_and_cpu(cfg, part, device):
+    """One train step of a small two-sweep student from the same weights
+    (flax-style init from seed 0, its zero leaves, the biases, then given
+    seeded noise of 1e-3 so that every leaf has a scale) on `device` and on
+    the CPU, the gradients read through make_train_step's probe; then the
+    CPU's optimizer applied to the card's gradients from the same weights.
+    -> dict: "terms", each loss term's and grad_norm's difference relative
+    to its value; "grad", the whole gradient's difference relative to its
+    norm; "cos", each leaf's cosine with the CPU's gradient (1 where both
+    are zero, 0 where one is); "update", each leaf's difference to the CPU
+    optimizer's result, relative to the leaf's largest change; "moved",
+    the largest change; the metrics and seconds on each."""
+    from thinktwice_tpu_torch.train import loop
+    from thinktwice_tpu_torch.train.train_step import (
+        create_train_state, make_optimizer, make_train_step)
+
+    init = loop.make_model(cfg, backbone_depth=10, n_sweeps=2, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    loop.init_model_params(cfg, init, gen)
+    start = {k: v + 1e-3 * torch.randn(v.shape, generator=gen) if not v.any() else v.clone()
+             for k, v in init.state_dict().items()}
+    out = {}
+    for dev in (torch.device(device), torch.device("cpu")):
+        model = loop.make_model(cfg, backbone_depth=10, n_sweeps=2, device=dev)
+        model.load_state_dict(start)
+        state = create_train_state(cfg, dict(model.named_parameters()))
+        grads = {}
+
+        def probe(stage, value, grads=grads):
+            if stage == "backward":
+                grads.update({k: g.detach().cpu() for k, g in value.items()})
+
+        t0 = time.perf_counter()
+        state, metrics = make_train_step(cfg, loop.model_loss_fn(cfg, model), probe)(
+            state, to_device(part, dev))
+        out[dev.type] = ({k: float(v) for k, v in metrics.items()}, grads,
+                         {k: v.detach().cpu() for k, v in state.params.items()},
+                         time.perf_counter() - t0)
+    (m_d, g_d, p_d, s_d), (m_c, g_c, _, s_c) = out[device.type], out["cpu"]
+    ref = {k: start[k].clone() for k in g_d}
+    tx = make_optimizer(cfg)
+    tx.step(ref, g_d, tx.init(ref))
+    return {
+        "terms": {k: abs(m_d[k] - m_c[k]) / max(abs(m_c[k]), 1e-12)
+                  for k in m_c if not k.startswith("metric_")},
+        "grad": float(torch.sqrt(sum(((g_d[k] - g_c[k]) ** 2).sum() for k in g_c))
+                      / torch.sqrt(sum((g_c[k] ** 2).sum() for k in g_c))),
+        "cos": {k: leaf_cosine(g_d[k], g_c[k]) for k in g_c},
+        "update": {k: float((p_d[k] - ref[k]).abs().max())
+                   / max(float((ref[k] - start[k]).abs().max()), 1e-30) for k in ref},
+        "moved": max(float((ref[k] - start[k]).abs().max()) for k in ref),
+        "metrics": (m_d, m_c), "seconds": (s_d, s_c)}
+
+
+def leaf_cosine(a, b) -> float:
+    """Cosine of two gradient leaves: 1 where both are zero, 0 where one is."""
+    a, b = a.double(), b.double()
+    na, nb = float(a.norm()), float(b.norm())
+    if na == 0 or nb == 0:
+        return float(na == nb)
+    return float((a * b).sum()) / (na * nb)
+
+
+def train_card_vs_cpu(cfg, batch, device):
+    """One train step of a small student on 2 examples of the collected
+    batch, on the card and on the CPU. In float32 compute: the loss terms
+    and grad_norm agree to TRAIN_TOL of their value; the gradient (the
+    backward) to GRAD_TOL of its norm, and each leaf at a cosine of at
+    least GRAD_COS; the card's updated parameters (the optimizer) to
+    TRAIN_TOL of each leaf's change with the CPU's optimizer on the card's
+    gradients. The gradient cannot be held leaf by leaf to 1e-3: a
+    float32 backward of this model moves by some 1e-3 of its norm, and by
+    some percent on single early leaves, with the order of its sums alone
+    (the CPU's with 1 and with 8 threads differ so on the tiny config;
+    the difference persists with cuDNN off and deterministic algorithms
+    on). In bfloat16, as the model runs, the
+    differences are printed: two bfloat16 runs whose convolutions round in
+    other orders (the JAX and the port's agree no closer on the CPU)."""
+    small = train_small_config(cfg)
+    part = slice_batch(batch, 2)
+    res = {}
+    for name, ctx in (("bfloat16", contextlib.nullcontext()), ("float32", float32_compute())):
+        with ctx:
+            r = res[name] = train_step_card_and_cpu(small, part, device)
+        (m_d, m_c), (s_d, s_c) = r["metrics"], r["seconds"]
+        t, c, u = (max(r["terms"], key=r["terms"].get), min(r["cos"], key=r["cos"].get),
+                   max(r["update"], key=r["update"].get))
+        log(f"[train card vs cpu] {name}: a ResNet-10 two-sweep student, one step on 2 of the "
+            f"collected examples: loss {m_d['loss']:.6f} on {device.type}, {m_c['loss']:.6f} "
+            f"on cpu; {len(r['terms'])} values (loss, terms, grad_norm) within "
+            f"{r['terms'][t]:.2e} of their value ({t}); the gradient within {r['grad']:.2e} "
+            f"of its norm, its {len(r['cos'])} leaves at cosine >= {r['cos'][c]:.6f} ({c}); "
+            f"the update within {r['update'][u]:.2e} of each leaf's change by the CPU's "
+            f"optimizer on the card's gradients ({u}); grad_norm {m_d['grad_norm']:.6f} vs "
+            f"{m_c['grad_norm']:.6f}; largest change {r['moved']:.3e}; {s_d:.2f} s on "
+            f"{device.type}, {s_c:.2f} s on cpu")
+    r = res["float32"]
+    bad = ([f"{k} {v:.2e}" for k, v in r["terms"].items() if v > TRAIN_TOL]
+           + ([f"gradient {r['grad']:.2e}"] if r["grad"] > GRAD_TOL else [])
+           + [f"{k} cosine {v:.6f}" for k, v in r["cos"].items() if v < GRAD_COS]
+           + [f"{k} update {v:.2e}" for k, v in r["update"].items() if v > TRAIN_TOL])
+    if bad or not r["moved"] > 0:
+        raise AssertionError("the float32 train step on the card disagrees with the CPU: "
+                             + "; ".join(bad[:8]))
+
+
+def train_checkpoint(cfg, model, batch, device, on_card):
+    """Archive the trained parameters (flax msgpack), read the archive back
+    with weights.load_student_model, and hold the same inputs' forward of
+    both models: equal bit for bit (deterministic algorithms on for the
+    forwards, so the voxel pooling's scatter sums in one order)."""
+    import tempfile
+
+    from thinktwice_tpu_torch.train import checkpoint as ckpt_lib
+    from thinktwice_tpu_torch.train import loop
+    from thinktwice_tpu_torch.weights import load_student_model
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "params.msgpack")
+        t0 = time.perf_counter()
+        ckpt_lib.archive_params(path, model.state_dict())
+        size = os.path.getsize(path)
+        t_write = time.perf_counter() - t0
+        loaded = load_student_model(path, cfg, device=device)
+    same_params = all(torch.equal(v, loaded.state_dict()[k])
+                      for k, v in model.state_dict().items())
+    part = slice_batch(batch, 2)
+
+    def leaves(outs):
+        return [t for v in outs.values() for t in (v if isinstance(v, tuple) else (v,))]
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with torch.no_grad():
+            fwd = [leaves(loop.model_forward(cfg, m)(part)) for m in (model, model, loaded)]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    repeat = all(torch.equal(a, b) for a, b in zip(fwd[0], fwd[1]))
+    same = all(torch.equal(a, b) for a, b in zip(fwd[0], fwd[2]))
+    log(f"[train checkpoint] params.msgpack {size} bytes written in {t_write:.2f} s; "
+        f"weights.load_student_model: parameters equal {same_params}; the forward (teacher "
+        f"pass included) of 2 examples equal bit for bit {same} ({len(fwd[0])} outputs; the "
+        f"trained model twice: {repeat}) on {'the card' if on_card else 'the cpu'}")
+    if not (same_params and same and repeat):
+        raise AssertionError("the archived student does not give the trained one's forward")
+
+
+def train_breakdown(cfg, model, state, batch):
+    """Where one train step's time goes: the forward with the teacher pass
+    and the losses, the backward, the optimizer, by CUDA events that
+    make_train_step's probe records in the step loop.train runs (one step
+    after a warm one), and the device's busy share over one step under
+    the profiler."""
+    from thinktwice_tpu_torch.train import loop
+    from thinktwice_tpu_torch.train.train_step import make_train_step
+
+    ev = {}
+
+    def probe(stage, _):
+        ev[stage] = torch.cuda.Event(enable_timing=True)
+        ev[stage].record()
+
+    step = make_train_step(cfg, loop.model_loss_fn(cfg, model), probe)
+    for _ in range(2):
+        torch.cuda.synchronize()
+        probe("start", None)
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    stages = ("start", "forward", "backward", "optimizer")
+    ms = [ev[a].elapsed_time(ev[b]) for a, b in zip(stages, stages[1:])]
+    log(f"[train breakdown] one step of {batch['imgs'].shape[0]} examples: forward with the "
+        f"teacher pass and the losses {ms[0]:.1f} ms, backward {ms[1]:.1f} ms, optimizer "
+        f"{ms[2]:.1f} ms")
+    log(device_busy(lambda: step(state, batch), "one train step", "[train breakdown]"))
+
+
+def train_phases(args, on_card: bool, device, card: str, n_vehicles: int) -> dict:
+    """The student's training path: collection in the loop (K1 and K2 on the
+    card, counted, and held against their plain versions on a collected
+    frame's inputs), loop.train for TRAIN_STEPS steps of student_rl6 (on the
+    CPU: the tiny student with random weights), the card against the CPU,
+    the archive. -> the training path's K1 and K2 launches and errors."""
+    import io
+    import itertools
+
+    from thinktwice_tpu_torch.config import bench_config
+    from thinktwice_tpu_torch.ops.birdview_cuda import K1
+    from thinktwice_tpu_torch.ops.raycast_cuda import K2
+    from thinktwice_tpu_torch.rollout import grid_routes
+    from thinktwice_tpu_torch.maps.procedural import make_grid_town
+    from thinktwice_tpu_torch.sensors import birdview as birdview_mod
+    from thinktwice_tpu_torch.train import loop
+    from thinktwice_tpu_torch.train.train_step import make_optimizer
+    from thinktwice_tpu_torch.weights import load_roach_policy, load_student_model
+
+    if on_card:
+        cfg = bench_config()
+        model = load_student_model(args.student_weights, cfg, device=device)
+    else:
+        cfg = student_tiny_config()
+        model = tiny_student(cfg, device)
+    policy = load_roach_policy(WEIGHTS, cfg, device=device)
+    town = make_grid_town(n_blocks=2, block=100.0, device=device)
+    routes = torch.as_tensor(grid_routes(1, cfg.sim.max_route_len), device=device)
+    g = torch.Generator(device=device).manual_seed(44)
+    stream = loop.collect_stream(cfg, policy, town, routes, g, frames_per_chunk=TRAIN_FRAMES,
+                                 n_vehicles=n_vehicles, n_sweeps=model.n_sweeps, n_worlds=1)
+
+    # ---- collection, the training path's first stage ----
+    K1.launches = K2.launches = 0
+    with Spy(birdview_mod, "birdview_bits", keep=1) as k1_rec, K2Inputs(keep=2) as k2_rec, \
+            Spy(loop, "collect_batch", keep=1) as chunk:
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch0 = next(stream)
+        if on_card:
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    k1_n, k2_n = K1.launches, K2.launches
+    final = chunk.results[0][0]
+    n_ex = batch0["imgs"].shape[0]
+    exp_k1, exp_k2 = (TRAIN_FRAMES * 6, TRAIN_FRAMES * 2) if on_card else (0, 0)
+    log(f"[train collect] 1 world, {n_vehicles} vehicles, {TRAIN_FRAMES} frames of 10 ticks "
+        f"(expert every 2 ticks and at each frame, 4 cameras of {cfg.camera.height} x "
+        f"{cfg.camera.width}, lidar {cfg.lidar.n_beams} x {cfg.lidar.n_azimuth}) -> "
+        f"{n_ex} examples of {model.n_sweeps} sweeps in {seconds:.3f} s: "
+        f"{TRAIN_FRAMES * 10 / seconds:.1f} env-steps/s on {card}; K1 launches {k1_n} "
+        f"(expected {exp_k1}), K2 launches {k2_n} (expected {exp_k2}); route completion "
+        f"{float(final.criteria.route_completion[0]):.4f}, speed "
+        f"{float(final.ego.speed[0]):.2f} m/s")
+    if (k1_n, k2_n) != (exp_k1, exp_k2):
+        raise AssertionError(f"the collection launched K1 {k1_n} and K2 {k2_n} times")
+    if n_ex != TRAIN_FRAMES - cfg.model.pred_len - (model.n_sweeps - 1):
+        raise AssertionError(f"the chunk gave {n_ex} examples")
+    for k, v in batch0.items():
+        for x in (v if isinstance(v, tuple) else (v,)):
+            if x.is_floating_point() and not bool(torch.isfinite(x).all()):
+                raise AssertionError(f"the collected {k} is not finite")
+
+    rows = {}
+    if on_card:
+        from thinktwice_tpu_torch.ops.birdview_cuda import birdview_bits_cuda, birdview_bits_plain
+
+        prims, ego = k1_rec.calls[-1][1:3]
+        bits_k = birdview_bits_cuda(cfg.birdview, prims, ego)
+        bits_p = birdview_bits_plain(cfg.birdview, prims, ego)
+        torch.cuda.synchronize()
+        mism = int((bits_k != bits_p).sum())
+        log(f"[k1 vs plain, training path] the collection's last policy call, "
+            f"{tuple(prims.shape)} prims: {mism} of {bits_k.numel()} pixels differ")
+        if mism or int((bits_p != 0).sum()) == 0:
+            raise AssertionError("K1 differs from its plain version on the training path")
+        inputs = [(name, *call) for name, call in zip(("cameras", "lidar"), k2_rec.calls)]
+        err = compare_k2(inputs, "training path, the last collected frame")
+        rows = dict(k1_err=0.0, k2_err=err)
+        del inputs, prims, ego, bits_k, bits_p
+
+    # ---- loop.train, the training path's main stage ----
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    K1.launches = K2.launches = 0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        state = loop.train(cfg, model, itertools.chain([batch0], stream), TRAIN_STEPS,
+                           params=model.state_dict(), log_every=1)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else float("nan")
+    rows.update(k1_train=k1_n + K1.launches, k2_train=k2_n + K2.launches)
+    tx = make_optimizer(cfg)
+    lines = [json.loads(line) for line in buf.getvalue().splitlines() if line.startswith("{")]
+    if len(lines) != TRAIN_STEPS:
+        raise AssertionError(f"loop.train logged {len(lines)} steps")
+    for rec in lines:
+        terms = {k: v for k, v in rec.items()
+                 if k not in ("step", "wall_s", "collect_s", "grad_s")}
+        if not all(np.isfinite(v) for v in terms.values()):
+            raise AssertionError(f"step {rec['step']}: a loss or the gradient is not finite")
+        log(f"[train step] {rec['step']}: lr {tx.schedule(rec['step'] - 1):.3e}, loss "
+            f"{rec['loss']:.5f}, grad_norm {rec['grad_norm']:.5f}, collect_s {rec['collect_s']}, "
+            f"grad_s {rec['grad_s']}; terms "
+            + ", ".join(f"{k} {v}" for k, v in terms.items() if k not in ("loss", "grad_norm")))
+    changed = sum(int(not torch.equal(v, model.state_dict()[k])) for k, v in before.items())
+    log(f"[train step] student {'student_rl6' if on_card else 'tiny (random weights)'} "
+        f"({sum(p.numel() for p in model.parameters())} parameters), batch {n_ex}, "
+        f"{TRAIN_STEPS} steps in {wall:.2f} s on {card} "
+        f"({TRAIN_STEPS * n_ex / lines[-1]['grad_s']:.2f} examples/s of the steps, "
+        f"{TRAIN_STEPS * n_ex / wall:.2f} with the collection); K1 launches {K1.launches}, "
+        f"K2 launches {K2.launches} (2 more chunks); peak memory {peak:.2f} GiB; "
+        f"{changed} of {len(before)} parameter tensors changed")
+    if state.step != TRAIN_STEPS or changed == 0:
+        raise AssertionError("the train steps did not update the parameters")
+    chunks = TRAIN_STEPS - 1
+    if (K1.launches, K2.launches) != (chunks * exp_k1, chunks * exp_k2):
+        raise AssertionError(f"loop.train's collection launched K1 {K1.launches} and K2 "
+                             f"{K2.launches} times")
+    del before
+
+    if on_card:
+        train_card_vs_cpu(cfg, batch0, device)
+    else:
+        log("[train card vs cpu] no card: skipped on the CPU rehearsal")
+    train_checkpoint(cfg, model, batch0, device, on_card)
+    if on_card:
+        train_breakdown(cfg, model, state, batch0)
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -938,10 +1326,18 @@ def main() -> int:
 
     # ---- phase 7: the ThinkTwice student and its evaluation -----------------
     k2_row = student_phases(args, on_card, device, card)
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # ---- phase 8: the student's training, the last main path --------------
+    train = train_phases(args, on_card, device, card, n_vehicles)
 
     if on_card:
-        keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        k1_row["train_launches"], k2_row["train_launches"] = train["k1_train"], train["k2_train"]
+        k1_row["max_abs_err"] = max(k1_row["max_abs_err"], train["k1_err"])
+        k2_row["max_abs_err"] = max(k2_row["max_abs_err"], train["k2_err"])
+        keys = ("name", "route", "source", "replaces", "launches", "train_launches",
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         log(json.dumps({"kernels": [{k: row[k] for k in keys} for row in (k1_row, k2_row)]}))
         log(card_line(device))
         device_info = {"platform": "gpu", "kind": kind,

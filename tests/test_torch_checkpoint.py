@@ -1,0 +1,162 @@
+"""PyTorch port parity: checkpoints and archives of thinktwice_tpu_torch
+against flax and thinktwice_tpu on the CPU.
+
+- The port's `archive_params` file is read by flax's msgpack_restore into
+  the tree the JAX package holds, leaf for leaf bit-equal, and its bytes
+  are the bytes flax writes for that tree.
+- The JAX package's `archive_params` file is read by the port.
+- state_dict -> flax tree -> state_dict is exact, and so is flax tree ->
+  state_dict -> flax tree on the student_rl6 archive (Bottleneck blocks).
+- `loop.train` logs its steps and validations, resumes from its own
+  checkpoint (the step count goes on; a step with IDA augmentation), and
+  from `params.msgpack` beside the checkpoint directory once that
+  directory is gone (fresh optimizer state).
+"""
+
+import itertools
+import json
+import os
+import shutil
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+from flax import serialization
+
+from test_torch_train_model import CAMS, random_params
+from test_torch_train_model_full import FROZEN, _torch_batch, model_inputs
+from thinktwice_tpu.config import ModelConfig as JaxModelConfig
+from thinktwice_tpu.models.encoder_decoder import ThinkTwiceModel as JaxThinkTwiceModel
+from thinktwice_tpu.train import checkpoint as jax_ckpt
+from thinktwice_tpu_torch.config import CameraConfig, Config, ModelConfig, TrainConfig
+from thinktwice_tpu_torch.models.encoder_decoder import ThinkTwiceModel
+from thinktwice_tpu_torch.train import checkpoint as ckpt
+from thinktwice_tpu_torch.train import loop
+from thinktwice_tpu_torch.weights import (
+    flax_tree_from_student_state_dict,
+    load_flax_msgpack,
+    student_state_dict_from_flax,
+)
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+STUDENT_RL6 = os.path.join(REPO, "runs", "student_rl6", "params.msgpack")
+
+
+def _jax_tiny_params():
+    """A seeded flax tree of the two-sweep ResNet-10 student at the frozen
+    dry-run shapes."""
+    args, s2k, _, _ = model_inputs()
+    jmodel = JaxThinkTwiceModel(JaxModelConfig(**FROZEN), backbone_depth=10, n_sweeps=2)
+    shapes = jax.eval_shape(lambda: jmodel.init(jax.random.key(0),
+                                                *[jnp.asarray(a) for a in args],
+                                                sweep2key=jnp.asarray(s2k)))
+    return random_params(shapes)
+
+
+def _port_model():
+    return ThinkTwiceModel(ModelConfig(**FROZEN), backbone_depth=10, n_sweeps=2, n_cams=2)
+
+
+def _assert_same_tree(a, b, path=""):
+    if isinstance(b, dict):
+        assert isinstance(a, dict) and set(a) == set(b), path
+        for k in b:
+            _assert_same_tree(a[k], b[k], f"{path}/{k}")
+    else:
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.dtype == b.dtype and a.shape == b.shape, path
+        assert np.array_equal(a, b), path
+
+
+def test_port_archive_is_read_by_flax(tmp_path):
+    tree = jax.tree.map(np.asarray, _jax_tiny_params())
+    model = _port_model()
+    sd = student_state_dict_from_flax(tree, model)
+    path = str(tmp_path / "params.msgpack")
+    ckpt.archive_params(path, sd)
+    with open(path, "rb") as f:
+        data = f.read()
+    restored = serialization.msgpack_restore(data)
+    _assert_same_tree(restored, tree)
+    assert data == serialization.msgpack_serialize(restored)
+    assert not os.path.exists(path + ".tmp")
+
+
+def test_jax_archive_is_read_by_the_port(tmp_path):
+    tree = jax.tree.map(np.asarray, _jax_tiny_params())
+    path = str(tmp_path / "params.msgpack")
+    jax_ckpt.archive_params(path, tree)
+    model = _port_model()
+    got = ckpt.restore_archive(path, model)
+    want = student_state_dict_from_flax(tree, model)
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    assert ckpt.restore_pytree(path, model).keys() == want.keys()
+
+
+def test_state_dict_and_flax_tree_round_trip():
+    model = _port_model()
+    g = torch.Generator().manual_seed(0)
+    sd = {k: torch.randn(v.shape, generator=g) for k, v in model.state_dict().items()}
+    back = student_state_dict_from_flax(flax_tree_from_student_state_dict(sd), model)
+    for k in sd:
+        assert torch.equal(back[k], sd[k]), k
+    # the student_rl6 archive (Bottleneck blocks) through the port and back
+    tree = load_flax_msgpack(STUDENT_RL6)
+    with torch.device("meta"):
+        big = ThinkTwiceModel(Config().model, backbone_depth=50, n_sweeps=2, n_cams=4)
+    _assert_same_tree(flax_tree_from_student_state_dict(student_state_dict_from_flax(tree, big)),
+                      tree)
+
+
+def _train_cfg():
+    return Config(camera=CameraConfig(**CAMS), model=ModelConfig(**FROZEN),
+                  train=TrainConfig(lr=1e-3, warmup_steps=2, total_steps=20))
+
+
+def _batch():
+    args, s2k, _, batch = model_inputs()
+    b = _torch_batch(batch)
+    imgs, points, mask, speed, tp, cmd = (torch.as_tensor(a) for a in args[:6])
+    b.update(imgs=imgs, points=points, points_mask=mask, speed=speed, target_point=tp,
+             command=cmd, sweep2key=torch.as_tensor(s2k))
+    return b
+
+
+def test_train_resumes_from_its_checkpoint_and_from_the_archive(tmp_path, capsys):
+    cfg, batch = _train_cfg(), _batch()
+    ckpt_dir = str(tmp_path / "run" / "ckpt")
+    archive = str(tmp_path / "run" / "params.msgpack")
+
+    def model():
+        return loop.make_model(cfg, backbone_depth=10, n_sweeps=2, device="cpu")
+
+    log_path = os.path.join(ckpt_dir, "train.jsonl")       # as the CLI's, before the dir exists
+    state = loop.train(cfg, model(), itertools.repeat(batch), 2, ckpt_dir=ckpt_dir,
+                       ckpt_every=1, log_every=1, log_path=log_path,
+                       val_batches_fn=lambda: [batch], eval_every=2)
+    assert state.step == 2 and os.path.exists(archive)
+    lines = [json.loads(line) for line in open(log_path).read().splitlines()]
+    assert [line["step"] for line in lines] == [1, 2, 2]
+    assert all({"loss", "grad_norm", "collect_s", "grad_s", "wall_s"} <= set(line)
+               for line in lines[:2])
+    assert np.isfinite(lines[2]["val_loss"]) and "val_depth_loss" in lines[2]
+
+    m2 = model()
+    state = loop.train(cfg, m2, itertools.repeat(batch), 1, ckpt_dir=ckpt_dir, resume=True,
+                       augment_ida=True)
+    assert "resumed from step 2" in capsys.readouterr().out
+    assert state.step == 3 and state.opt_state.count == 3
+
+    shutil.rmtree(ckpt_dir)
+    want = ckpt.restore_archive(archive, m2)
+    m3 = model()
+    state = loop.train(cfg, m3, iter(()), 0, ckpt_dir=ckpt_dir, resume=True)
+    assert "resumed params from" in capsys.readouterr().out
+    assert state.step == 0 and state.opt_state.count == 0
+    for k, v in m3.state_dict().items():
+        assert torch.equal(v, want[k]), k

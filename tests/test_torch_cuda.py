@@ -1,6 +1,7 @@
 """PyTorch port on the card: each CUDA kernel against its plain version (K1
-the birdview rasterizer, K2 the ray-vs-box intersector), and the card's
-world step against the CPU's. These tests need an NVIDIA card and skip
+the birdview rasterizer, K2 the ray-vs-box intersector), also on a frame
+collected for training, the card's world step against the CPU's, and one
+train step of a tiny student on the card against the CPU. These tests need an NVIDIA card and skip
 without one; they import no JAX, so on a machine with a card and no JAX
 they run with
 
@@ -12,7 +13,7 @@ import math
 import pytest
 import torch
 
-from thinktwice_tpu_torch.config import Config, SimConfig
+from thinktwice_tpu_torch.config import CameraConfig, Config, LidarConfig, ModelConfig, SimConfig
 from thinktwice_tpu_torch.ops import birdview_cuda as k1
 from thinktwice_tpu_torch.ops import raycast_cuda as k2
 from thinktwice_tpu_torch.rollout import grid_world
@@ -308,3 +309,126 @@ def test_k1_table_over_the_shared_budget_on_card(card):
     wx, wy = k1.pixel_world_coords(CFG.birdview, ego)
     centre = torch.stack([wx.mean(1), wy.mean(1)], dim=-1)
     _k1_equal(card, _prim_rows(2, 4096 + 300, centre, 45.0, seed=1), ego)
+
+
+TINY = Config(
+    sim=SimConfig(max_vehicles=8, max_walkers=4, max_route_len=256, max_scenarios=4),
+    camera=CameraConfig(height=32, width=64), lidar=LidarConfig(n_beams=4, n_azimuth=64),
+    model=ModelConfig(img_height=32, img_width=64, refine_num=1, bev_channels=64,
+                      n_depth_bins=16, lidar_pillar_grid=84))
+
+
+def _tiny_collect(device, n_frames):
+    """One world of the tiny config collected on `device` by a Roach with
+    flax-style weights from seed 0 -> (two-sweep batch, or None with fewer
+    than 6 frames; K1's last inputs and K2's last two calls)."""
+    from thinktwice_tpu_torch.agents.roach import RoachPolicy
+    from thinktwice_tpu_torch.sensors import birdview, raycast
+    from thinktwice_tpu_torch.train import collect, loop
+
+    policy = RoachPolicy.from_config(TINY).to(device)
+    loop.init_model_params(TINY, policy, torch.Generator(device=device).manual_seed(0))
+    g = torch.Generator(device=device).manual_seed(3)
+    town, state = grid_world(TINY, 1, 4, device=device, generator=g)
+    seen = {"k1": None, "k2": []}
+    real_k1, real_k2 = birdview.birdview_bits, raycast.ray_boxes_table
+
+    def k1_spy(cfg, prims, ego):
+        seen["k1"] = (prims, ego)
+        return real_k1(cfg, prims, ego)
+
+    def k2_spy(o, d, table, grid=None):
+        seen["k2"] = (seen["k2"] + [(o, d, table, grid)])[-2:]
+        return real_k2(o, d, table, grid=grid)
+
+    birdview.birdview_bits, raycast.ray_boxes_table = k1_spy, k2_spy
+    try:
+        _, frames, sensors = collect.collect_batch(TINY, policy.eval(), town, state, n_frames,
+                                                   generator=g)
+    finally:
+        birdview.birdview_bits, raycast.ray_boxes_table = real_k1, real_k2
+    batch = collect.frames_to_batch(TINY, frames, sensors, n_sweeps=2) if n_frames > 5 else None
+    return batch, seen
+
+
+@pytest.mark.cuda
+def test_collected_frame_kernels_match_plain_on_card(card):
+    k1_before, k2_before = k1.K1.launches, k2.K2.launches
+    batch, seen = _tiny_collect(card, 2)
+    torch.cuda.synchronize()
+    assert (k1.K1.launches - k1_before, k2.K2.launches - k2_before) == (12, 4)
+    prims, ego = seen["k1"]
+    assert torch.equal(k1.birdview_bits(TINY.birdview, prims, ego),
+                       k1.birdview_bits_plain(TINY.birdview, prims, ego))
+    for o, d, table, grid in seen["k2"]:
+        t, idx = k2.ray_boxes_table(o, d, table, grid=grid)
+        t_p, idx_p = k2.ray_boxes_plain(o, d, table)
+        assert torch.equal(idx, idx_p) and torch.equal(t, t_p)
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_matches_cpu(card, monkeypatch):
+    """In float32 compute (the student's bfloat16 and the card's TF32
+    switched off, so no reduced-precision rounding enters), from a
+    flax-style init whose zero leaves (the biases) get seeded noise of
+    1e-3, so that every leaf has a scale: the loss terms and grad_norm to
+    1e-3 of their value; the gradient to 1e-2 of its norm and each leaf at
+    a cosine of at least 0.99 (the float32 backward moves by some 1e-3 of
+    its norm with the order of its sums: this config's CPU gradients with
+    1 and with 8 threads differ so); and the card's updated parameters to 1e-3
+    of each leaf's change with the CPU's optimizer on the card's
+    gradients."""
+    from thinktwice_tpu_torch.config import TrainConfig
+    from thinktwice_tpu_torch.models import encoder_decoder, lidarnet, lss
+    from thinktwice_tpu_torch.train import loop
+    from thinktwice_tpu_torch.train.train_step import (
+        create_train_state, make_optimizer, make_train_step)
+
+    # lr 1e-3 from the first step: the update lies far above the float32
+    # spacing of the parameters (the default schedule's first lr is 1e-7)
+    cfg = TINY.replace(train=TrainConfig(lr=1e-3, warmup_steps=0))
+    for mod in (encoder_decoder, lidarnet, lss):
+        monkeypatch.setattr(mod, "BF16", torch.float32)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    batch, _ = _tiny_collect(torch.device("cpu"), 7)               # 2 examples, 2 sweeps
+    init = loop.make_model(cfg, backbone_depth=10, n_sweeps=2, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    loop.init_model_params(cfg, init, gen)
+    start = {k: v + 1e-3 * torch.randn(v.shape, generator=gen) if not v.any() else v
+             for k, v in init.state_dict().items()}
+    out = {}
+    for dev in (torch.device("cpu"), card):
+        model = loop.make_model(cfg, backbone_depth=10, n_sweeps=2, device=dev)
+        model.load_state_dict(start)
+        state = create_train_state(cfg, dict(model.named_parameters()))
+        on = {k: tuple(x.to(dev) for x in v) if isinstance(v, tuple) else v.to(dev)
+              for k, v in batch.items()}
+        grads = {}
+
+        def probe(stage, value, grads=grads):
+            if stage == "backward":
+                grads.update({k: g.detach().cpu().double() for k, g in value.items()})
+
+        _, metrics = make_train_step(cfg, loop.model_loss_fn(cfg, model), probe)(state, on)
+        out[dev.type] = ({k: float(v) for k, v in metrics.items()}, grads,
+                         {k: v.detach().cpu() for k, v in model.named_parameters()})
+    (m_c, g_c, _), (m_d, g_d, p_d) = out["cpu"], out["cuda"]
+    for k in m_c:
+        if not k.startswith("metric_"):
+            assert abs(m_d[k] - m_c[k]) <= 1e-3 * max(abs(m_c[k]), 1e-12), k
+    diff = math.sqrt(sum(float(((g_d[k] - g_c[k]) ** 2).sum()) for k in g_c))
+    assert diff <= 1e-2 * math.sqrt(sum(float((g ** 2).sum()) for g in g_c.values()))
+    for k in g_c:
+        n_d, n_c = float(g_d[k].norm()), float(g_c[k].norm())
+        if n_c == 0:
+            assert n_d == 0, k
+        else:
+            assert float((g_d[k] * g_c[k]).sum()) >= 0.99 * n_d * n_c, k
+    ref = {k: start[k].clone() for k in g_d}
+    tx = make_optimizer(cfg)
+    tx.step(ref, {k: g.float() for k, g in g_d.items()}, tx.init(ref))
+    for k in ref:
+        change = float((ref[k] - start[k]).abs().max())
+        assert change > 0, k
+        assert float((p_d[k] - ref[k]).abs().max()) <= 1e-3 * change, k

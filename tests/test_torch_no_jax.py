@@ -4,10 +4,12 @@ A machine with a card may have torch, numpy and the CUDA toolkit and none of
 jax, flax, optax, orbax, msgpack, ninja or triton. In a subprocess where
 those modules (and the JAX package) cannot be imported, every module of
 thinktwice_tpu_torch imports; `python -m thinktwice_tpu_torch.cli evaluate
---device cpu` scores two routes and `python -m thinktwice_tpu_torch.bench
---device cpu` prints its record at a tiny size; and `chip_smoke.py --device
-cpu --small` runs to exit 0, the Roach rollout, the tiny student's closed
-loop and the three evaluator phases included; nothing reaches
+--device cpu` scores two routes, `cli collect --device cpu` writes a batch
+of 5 frames and `python -m thinktwice_tpu_torch.bench --device cpu` prints
+its record at a tiny size; and `chip_smoke.py --device cpu --small` runs to
+exit 0, the Roach rollout, the tiny student's closed loop, the three
+evaluator phases and the training phases (collection, 3 steps of
+loop.train, the archive read back) included; nothing reaches
 torch.utils.cpp_extension.
 """
 
@@ -35,6 +37,14 @@ print("imported", len(names), "modules", flush=True)
 sys.argv = ["cli", "evaluate", "--device", "cpu", "--n-routes", "2", "--batch", "2",
             "--vehicles", "2", "--route-len", "64"]
 runpy.run_module("thinktwice_tpu_torch.cli", run_name="__main__")
+import tempfile
+with tempfile.TemporaryDirectory() as tmp:
+    sys.argv = ["cli", "collect", "--device", "cpu", "--frames", "5", "--vehicles", "2",
+                "--route-len", "256", "--out", tmp]
+    runpy.run_module("thinktwice_tpu_torch.cli", run_name="__main__")
+    import torch
+    batch = torch.load(tmp + "/batch.pt", weights_only=True)
+    print("collected batch", tuple(batch["imgs"].shape), flush=True)
 sys.argv = ["bench", "--device", "cpu", "--worlds", "2", "--steps", "4"]
 runpy.run_module("thinktwice_tpu_torch.bench", run_name="__main__")
 sys.argv = ["chip_smoke.py", "--device", "cpu", "--small"]
@@ -65,11 +75,14 @@ def test_port_and_smoke_run_without_jax_stack():
     bench = next(json.loads(line) for line in lines if line.startswith('{"metric"'))
     assert bench["metric"] == "env_steps_per_sec_2worlds_roach_grid"
     assert lines[lines.index(json.dumps(bench)) + 1] == "cpu"
+    assert "collected batch (1, 1, 4, 256, 512, 3)" in lines
     for tag in ("[eval card vs cpu] autopilot", "[eval card vs cpu] expert", "[eval expert]",
-                "[eval student]"):
+                "[eval student]", "[train collect]", "[train step] 3:", "[train checkpoint]"):
         assert any(line.startswith(tag) for line in lines), tag
     assert any(line.startswith("[rollout] ") for line in lines)
     assert any(line.startswith("[student] 2 worlds x 4 ticks") for line in lines)
+    assert any(line.startswith("[train checkpoint]") and "bit for bit True" in line
+               for line in lines)
     assert "cpp_extension loaded: False" in lines
     last = json.loads(lines[-2])
     assert last == {"ok": True, "device": {"platform": "cpu", "kind": "cpu", "count": 1}}

@@ -8,10 +8,15 @@ forecasts the ego's and every actor's box over ~2 s and adds the stopped-
 vehicle cone; red lights, stop signs and crossing streams brake through
 the autopilot's caps. A rule brake that overrides the policy sets the
 `only_ap_brake` supervision flag.
+
+`collect_rollout` drives the expert and records a dataset `Frame` (pose,
+control, target point, command and the Roach supervision) every
+ticks_per_frame ticks; train/collect.py adds the sensors.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import torch
@@ -23,6 +28,7 @@ from thinktwice_tpu_torch.geometry import obb_overlap
 from thinktwice_tpu_torch.maps.town import TownMap
 from thinktwice_tpu_torch.sensors.birdview import birdview_from_state
 from thinktwice_tpu_torch.sim.state import WorldState
+from thinktwice_tpu_torch.sim.step import StepDraws, step_world
 
 FORECAST_TS = (0.0, 0.5, 1.0, 1.5, 2.0)
 
@@ -147,3 +153,94 @@ def make_expert_policy(cfg: Config, policy: RoachPolicy):
         return control
 
     return policy_fn
+
+
+@dataclasses.dataclass(frozen=True)
+class Frame:
+    """Saved dataset frames of B worlds: each field (B, ...) for one frame,
+    (B, F, ...) once collect_rollout stacks them."""
+
+    pos: torch.Tensor
+    yaw: torch.Tensor
+    speed: torch.Tensor
+    control: torch.Tensor
+    target_point: torch.Tensor      # the route point 50 m ahead, ego frame
+    route_completion: torch.Tensor
+    command: torch.Tensor           # int64 RoadOption - 1 (train/collect.py)
+    supervision: dict[str, Any]
+
+
+def _target_point(state: WorldState, lookahead_m: float = 50.0):
+    """(B, 2) the route point lookahead_m ahead, in the ego frame."""
+    B, R = state.route_cumlen.shape
+    b = torch.arange(B, device=state.route.device)
+    cum = state.route_cumlen
+    ahead = cum[b, state.criteria.route_idx] + lookahead_m
+    tidx = torch.clamp(torch.searchsorted(cum, ahead[:, None])[:, 0], 0, R - 1)
+    rel = state.route[b, tidx, :2] - state.ego.pos
+    c, s = torch.cos(-state.ego.yaw), torch.sin(-state.ego.yaw)
+    return torch.stack([rel[:, 0] * c - rel[:, 1] * s, rel[:, 0] * s + rel[:, 1] * c],
+                       dim=-1)
+
+
+def make_frame(town: TownMap, state: WorldState, control, supervision) -> Frame:
+    from thinktwice_tpu_torch.train.collect import route_command
+
+    return Frame(
+        pos=state.ego.pos, yaw=state.ego.yaw, speed=state.ego.speed, control=control,
+        target_point=_target_point(state),
+        route_completion=state.criteria.route_completion,
+        command=route_command(town, state.route, state.criteria.route_idx),
+        supervision=supervision,
+    )
+
+
+def stack_frames(frames: list):
+    """Per-frame trees (tensors, tuples, dicts, Frames) of B worlds -> one
+    tree with the frames stacked on axis 1."""
+    f0 = frames[0]
+    if torch.is_tensor(f0):
+        return torch.stack(frames, dim=1)
+    if isinstance(f0, tuple):
+        return tuple(stack_frames(list(z)) for z in zip(*frames))
+    if isinstance(f0, dict):
+        return {k: stack_frames([f[k] for f in frames]) for k in f0}
+    return Frame(**{f.name: stack_frames([getattr(x, f.name) for x in frames])
+                    for f in dataclasses.fields(Frame)})
+
+
+def drive_frame(cfg: Config, policy: RoachPolicy, town: TownMap, state: WorldState,
+                control, ticks: int, policy_every: int,
+                step_draws: list[StepDraws] | None = None,
+                generator: torch.Generator | None = None):
+    """The ticks between two saved frames: the expert every policy_every
+    ticks (from the first), its control held in between. -> (state, last
+    control)."""
+    for k in range(ticks):
+        if k % policy_every == 0:
+            control, _ = expert_control(cfg, policy, town, state)
+        state, _ = step_world(cfg, town, state, control,
+                              draws=None if step_draws is None else step_draws[k],
+                              generator=generator)
+    return state, control
+
+
+def collect_rollout(cfg: Config, policy: RoachPolicy, town: TownMap, state: WorldState,
+                    n_frames: int, ticks_per_frame: int = 10, policy_every: int = 2,
+                    step_draws: list[StepDraws] | None = None,
+                    generator: torch.Generator | None = None):
+    """Drive the expert and record a Frame every ticks_per_frame ticks (2 Hz
+    at the 20 Hz tick), the supervision taken at the start of each frame.
+    step_draws, when given, holds every tick's draws (n_frames *
+    ticks_per_frame); else they come from generator, which is then
+    required. -> (final state, Frame of (B, F, ...))."""
+    if step_draws is None and generator is None:
+        raise ValueError("collect_rollout needs its draws or a seeded torch.Generator")
+    frames = []
+    for f in range(n_frames):
+        ctrl_now, sup = expert_control(cfg, policy, town, state)
+        frames.append(make_frame(town, state, ctrl_now, sup))
+        draws = None if step_draws is None else step_draws[f * ticks_per_frame:]
+        state, _ = drive_frame(cfg, policy, town, state, ctrl_now, ticks_per_frame,
+                               policy_every, draws, generator)
+    return state, stack_frames(frames)

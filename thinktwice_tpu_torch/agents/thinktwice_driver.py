@@ -21,6 +21,7 @@ from torch.nn import functional as F
 
 from thinktwice_tpu_torch import resolve_device
 from thinktwice_tpu_torch.agents import thinktwice as tw
+from thinktwice_tpu_torch.agents.expert import _target_point
 from thinktwice_tpu_torch.config import Config
 from thinktwice_tpu_torch.geometry import sweep_to_key
 from thinktwice_tpu_torch.maps.town import TownMap
@@ -91,19 +92,6 @@ def driver_init(cfg: Config, n_worlds: int, n_sweeps: int = 1,
         base, rgb_ring=z(cam.n_cams, cam.height, cam.width, 3), pts_ring=z(P, 4),
         mask_ring=z(P, dtype=torch.bool), pos_ring=z(2), yaw_ring=z(),
     )
-
-
-def _target_point(state: WorldState, lookahead_m: float = 50.0):
-    """(B, 2) the route point lookahead_m ahead, in the ego frame."""
-    B, R = state.route_cumlen.shape
-    b = torch.arange(B, device=state.route.device)
-    cum = state.route_cumlen
-    ahead = cum[b, state.criteria.route_idx] + lookahead_m
-    tidx = torch.clamp(torch.searchsorted(cum, ahead[:, None])[:, 0], 0, R - 1)
-    rel = state.route[b, tidx, :2] - state.ego.pos
-    c, s = torch.cos(-state.ego.yaw), torch.sin(-state.ego.yaw)
-    return torch.stack([rel[:, 0] * c - rel[:, 1] * s, rel[:, 0] * s + rel[:, 1] * c],
-                       dim=-1)
 
 
 def _normalize(rgb):

@@ -1,10 +1,19 @@
-"""Command line of the port: evaluate and benchmark (counterpart of
-`thinktwice_tpu/cli.py`; its collect and train wait for the training
-slice).
+"""Command line of the port: evaluate, collect, train and benchmark
+(counterpart of `thinktwice_tpu/cli.py`).
 
     python -m thinktwice_tpu_torch.cli evaluate --routes <xml> --agent autopilot
     python -m thinktwice_tpu_torch.cli evaluate --device cpu --n-routes 2 --route-len 64
+    python -m thinktwice_tpu_torch.cli collect --frames 32 --out data/run0
+    python -m thinktwice_tpu_torch.cli train --steps 100 --ckpt-dir ckpts \
+        --roach-ckpt runs/roach_rl6/params.msgpack
     python -m thinktwice_tpu_torch.cli benchmark
+
+`collect` drives a Roach expert (random weights from seed 0, as the JAX
+CLI's) on one straight route of the grid town and writes the training batch
+with torch.save (`<out>/batch.pt`). `train` trains a student from a fresh
+init on batches collected in the loop from two routes, the expert from
+--roach-ckpt (a flax `.msgpack` archive or a torch.save state_dict) or
+random.
 
 Entry points run on the card unless --device cpu asks for the CPU.
 """
@@ -86,6 +95,74 @@ def cmd_evaluate(args):
     print(json.dumps(g["scores"], indent=2))
 
 
+def _grid_route(y: float) -> np.ndarray:
+    xs = np.linspace(5.0, 180.0, 256)
+    return np.stack([xs, np.full_like(xs, y), np.zeros_like(xs)], 1).astype(np.float32)
+
+
+def _roach(cfg, device, ckpt=None):
+    """The expert: a checkpoint's weights, or flax-style random ones from
+    seed 0."""
+    import torch
+
+    from thinktwice_tpu_torch.agents.roach import RoachPolicy
+    from thinktwice_tpu_torch.train.checkpoint import restore_pytree
+    from thinktwice_tpu_torch.train.loop import init_model_params
+
+    policy = RoachPolicy.from_config(cfg).to(device)
+    if ckpt:
+        policy.load_state_dict(restore_pytree(ckpt, policy))
+    else:
+        init_model_params(cfg, policy, torch.Generator(device=device).manual_seed(0))
+    return policy.eval()
+
+
+def cmd_collect(args):
+    import os
+
+    import torch
+
+    from thinktwice_tpu_torch.sim.reset import reset_world
+    from thinktwice_tpu_torch.train.checkpoint import save_pytree
+    from thinktwice_tpu_torch.train.collect import collect_batch, frames_to_batch
+
+    cfg, town = _build_world(args)
+    policy = _roach(cfg, town.device)
+    g = torch.Generator(device=town.device).manual_seed(args.seed)
+    route = torch.as_tensor(_grid_route(98.25)[None], device=town.device)
+    state = reset_world(cfg, town, route, n_vehicles=args.vehicles, generator=g)
+    final, frames, sensors = collect_batch(cfg, policy, town, state, args.frames,
+                                           generator=g)
+    batch = frames_to_batch(cfg, frames, sensors)
+    os.makedirs(args.out, exist_ok=True)
+    save_pytree(os.path.join(args.out, "batch.pt"),
+                {k: tuple(x.cpu() for x in v) if isinstance(v, tuple) else v.cpu()
+                 for k, v in batch.items()})
+    print(f"collected {args.frames} frames -> {args.out} "
+          f"(completion {float(final.criteria.route_completion[0]):.2%})")
+
+
+def cmd_train(args):
+    import os
+
+    import torch
+
+    from thinktwice_tpu_torch.train.loop import collect_stream, make_model, train
+
+    cfg, town = _build_world(args)
+    policy = _roach(cfg, town.device, args.roach_ckpt)
+    routes = torch.as_tensor(np.stack([_grid_route(98.25), _grid_route(198.25)]),
+                             device=town.device)
+    model = make_model(cfg, backbone_depth=args.backbone, device=town.device)
+    batches = collect_stream(
+        cfg, policy, town, routes,
+        torch.Generator(device=town.device).manual_seed(cfg.train.seed),
+        frames_per_chunk=args.frames_per_chunk, n_vehicles=args.vehicles)
+    train(cfg, model, batches, n_steps=args.steps, ckpt_dir=args.ckpt_dir,
+          log_path=os.path.join(args.ckpt_dir, "train.jsonl") if args.ckpt_dir else None,
+          resume=args.resume)
+
+
 def cmd_benchmark(args):
     from thinktwice_tpu_torch import bench
 
@@ -96,11 +173,15 @@ def main(argv=None):
     p = argparse.ArgumentParser(prog="thinktwice_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
 
+    def common(sp):
+        sp.add_argument("--vehicles", type=int, default=16)
+        sp.add_argument("--blocks", type=int, default=2)
+        sp.add_argument("--route-len", type=int, default=1024)
+        sp.add_argument("--seed", type=int, default=0)
+        sp.add_argument("--device", default="cuda")
+
     e = sub.add_parser("evaluate")
-    e.add_argument("--vehicles", type=int, default=16)
-    e.add_argument("--blocks", type=int, default=2)
-    e.add_argument("--route-len", type=int, default=1024)
-    e.add_argument("--seed", type=int, default=0)
+    common(e)
     e.add_argument("--routes", default=None, help="route XML (reference format)")
     e.add_argument("--scenarios", default=None,
                    help="scenario JSON (reference format)")
@@ -110,8 +191,25 @@ def main(argv=None):
     e.add_argument("--out", default=None)
     e.add_argument("--resume", action="store_true")
     e.add_argument("--benchmark", default="town05long")
-    e.add_argument("--device", default="cuda")
     e.set_defaults(fn=cmd_evaluate)
+
+    c = sub.add_parser("collect")
+    common(c)
+    c.add_argument("--frames", type=int, default=32)
+    c.add_argument("--out", default="data/run0")
+    c.set_defaults(fn=cmd_collect)
+
+    t = sub.add_parser("train")
+    common(t)
+    t.add_argument("--steps", type=int, default=100)
+    t.add_argument("--ckpt-dir", default="ckpts")
+    t.add_argument("--backbone", type=int, default=50)
+    t.add_argument("--frames-per-chunk", type=int, default=12,
+                   help="frames collected per chunk; batch = chunk - pred_len")
+    t.add_argument("--roach-ckpt", default=None,
+                   help="the expert's weights: a flax .msgpack archive or a torch.save file")
+    t.add_argument("--resume", action="store_true")
+    t.set_defaults(fn=cmd_train)
 
     b = sub.add_parser("benchmark")
     b.add_argument("--device", default="cuda")

@@ -2,9 +2,9 @@
 
 A copy of the dataclasses of `thinktwice_tpu/config.py` that this package
 reads (`SimConfig`, `BirdviewConfig`, `CameraConfig`, `LidarConfig`,
-`ModelConfig`, `RoachConfig` and the `Config` that holds them), with the
-same field names and defaults, so a test can build one of each from the same
-numbers. The training config joins when training is ported.
+`ModelConfig`, `RoachConfig`, `TrainConfig` and the `Config` that holds
+them), with the same field names and defaults, so a test can build one of
+each from the same numbers.
 """
 
 from __future__ import annotations
@@ -142,6 +142,22 @@ class RoachConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Student training: AdamW with a warmup-cosine schedule and a global
+    norm clip."""
+
+    lr: float = 1e-4
+    weight_decay: float = 0.01
+    warmup_steps: int = 500
+    total_steps: int = 60_000
+    batch_size: int = 8              # examples per optimizer step
+    grad_clip: float = 35.0
+    seed: int = 0
+    grad_accum: int = 1              # chunks the batch splits into, their
+    # gradients averaged: the activations of one chunk live at a time
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     sim: SimConfig = dataclasses.field(default_factory=SimConfig)
     birdview: BirdviewConfig = dataclasses.field(default_factory=BirdviewConfig)
@@ -149,6 +165,10 @@ class Config:
     lidar: LidarConfig = dataclasses.field(default_factory=LidarConfig)
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     roach: RoachConfig = dataclasses.field(default_factory=RoachConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+
+    def replace(self, **kw) -> "Config":
+        return dataclasses.replace(self, **kw)
 
 
 def bench_config() -> Config:

@@ -1,19 +1,22 @@
-"""ThinkTwice cascaded look-and-predict decoder, inference path (counterpart
-of `thinktwice_tpu/models/decoder.py`).
+"""ThinkTwice cascaded look-and-predict decoder (counterpart of
+`thinktwice_tpu/models/decoder.py`).
 
 Coarse heads from the flattened BEV and the measurement feature give the
 first waypoints and (alpha, beta) controls; `refine_num` cascaded layers
 then each roll the 32-channel BEV forward (SpatialGRU), look into the
 cameras at the waypoints (deformable attention over the FPN features) and
-add offsets to waypoints and controls. BEV maps are NCHW, feature maps for
-the look module NHWC (as `ops/grid_sample.py` takes them). The refine
-layers compute in bfloat16 where the JAX package's do; the coarse heads and
-the waypoint and control state stay float32.
+add offsets to waypoints and controls. Each layer sees its input waypoints
+and controls detached, so no gradient flows from one layer's offsets into
+the layers before it. With teacher waypoints and controls, a second
+cascade through the same layers starts from them (teacher forcing) and
+returns its offsets and features. BEV maps are NCHW, feature maps for the
+look module NHWC (as `ops/grid_sample.py` takes them). The refine layers
+compute in bfloat16 where the JAX package's do; the coarse heads and the
+waypoint and control state stay float32.
 
 The lidar look branch's output is zeros, as in the JAX package (which
 computes the branch and then replaces it with zeros): its parameters are
-held so that an archive loads, and nothing is computed with them. The
-teacher-forcing pass of training is not ported here.
+held so that an archive loads, and nothing is computed with them.
 """
 
 from __future__ import annotations
@@ -119,14 +122,18 @@ class PredictionModule(nn.Module):
         return future
 
 
-def project_to_cams(points3d, ego2img, img_hw):
+def project_to_cams(points3d, ego2img, img_hw, ida=None):
     """points3d (B, Q, 3) ego frame; ego2img (N, 4, 4) -> normalized camera
-    coordinates (B, N, Q, 2) in [0, 1] and a validity mask (B, N, Q)."""
+    coordinates (B, N, Q, 2) in [0, 1] and a validity mask (B, N, Q). With
+    ida (B, N, 4, 4) the pixels map into augmented image space."""
     hom = torch.cat([points3d, torch.ones_like(points3d[..., :1])], dim=-1)
     proj = torch.einsum("nij,bqj->bnqi", ego2img, hom)
     eps = 1e-5
     z = proj[..., 2:3]
     xy = proj[..., 0:2] / torch.clamp_min(z, eps)
+    if ida is not None:
+        xy = (torch.einsum("bnij,bnqj->bnqi", ida[..., :2, :2], xy)
+              + ida[..., None, :2, 3])
     u = xy[..., 0] / img_hw[1]
     v = xy[..., 1] / img_hw[0]
     valid = (z[..., 0] > eps) & (u > 0.0) & (u < 1.0) & (v > 0.0) & (v < 1.0)
@@ -206,7 +213,7 @@ class LookModule(nn.Module):
                                               dtype=dtype)
 
     def forward(self, wp, ctrl_sp, measurement, flat_feat, ego2img, fpn_value,
-                spatial_shapes, temporal_emb, static_emb):
+                spatial_shapes, temporal_emb, static_emb, ida=None):
         m = self.cfg
         B, T, _ = wp.shape
         Z = m.n_z_anchors
@@ -228,7 +235,8 @@ class LookModule(nn.Module):
             measurement[:, None, :].expand(B, P * Z, -1),
             flat_feat[:, None, :].expand(B, P * Z, -1),
         ], dim=-1)
-        ref_cam, valid = project_to_cams(pts3d, ego2img, (m.img_height, m.img_width))
+        ref_cam, valid = project_to_cams(pts3d, ego2img, (m.img_height, m.img_width),
+                                         ida)
         N = ref_cam.shape[1]
         sampled = torch.stack([
             torch.cat([grid_sample_norm(fpn_value["maps"][lvl][:, c],
@@ -259,14 +267,14 @@ class DecoderLayer(nn.Module):
 
     def forward(self, bev32, wp, ctrl, prev_future, measurement, flat_feat,
                 ego2img, fpn_value, spatial_shapes, temporal_emb, static_emb,
-                pyramid):
+                pyramid, ida=None):
         B, T = wp.shape[:2]
         ctrl_sp = F.softplus(ctrl)
         future = self.prediction(bev32, wp, ctrl_sp, prev_future)
         flat_future, _ = pyramid(future.reshape(B * T, *future.shape[2:]))
         flat_future = flat_future.reshape(B, T, -1)
         look = self.look(wp, ctrl_sp, measurement, flat_feat, ego2img, fpn_value,
-                         spatial_shapes, temporal_emb, static_emb)
+                         spatial_shapes, temporal_emb, static_emb, ida)
         dt = flat_future.dtype
         x = torch.cat([flat_future, look.to(dt),
                        temporal_emb[None].expand(B, T, -1).to(dt),
@@ -306,9 +314,11 @@ class ThinkTwiceDecoder(nn.Module):
             setattr(self, f"layer{i}", DecoderLayer(cfg, i == 0, dtype=dtype))
 
     def forward(self, flat_feat, bev32, measurement, ego2img, fpn_value,
-                spatial_shapes: Sequence[tuple[int, int]], pyramid):
-        """Returns the outputs of the inference pass (keys as in the JAX
-        package's decoder)."""
+                spatial_shapes: Sequence[tuple[int, int]], pyramid,
+                teacher_wp=None, teacher_ctrl_sp=None, ida=None):
+        """Returns the outputs (keys as in the JAX package's decoder); with
+        teacher_wp (B, T, 2) and teacher_ctrl_sp (B, T, 4) also the teacher
+        pass's `teacher_*` outputs."""
         m = self.cfg
         B, T = flat_feat.shape[0], m.pred_len
         outs = {"pred_speed": self.MLP_0(flat_feat)}
@@ -324,23 +334,31 @@ class ThinkTwiceDecoder(nn.Module):
         ctrl = torch.cat([self.dist_mu(policy).reshape(B, T, 2),
                           self.dist_sigma(policy).reshape(B, T, 2)], dim=-1)
 
-        wp_list, ctrl_list = [wp], [ctrl]
-        bev, flat, future = bev32, flat_feat, None
-        futures, bevs, flats = [], [], []
-        for i in range(m.refine_num):
-            dwp, dct, future, bev, flat = getattr(self, f"layer{i}")(
-                bev, wp_list[-1], ctrl_list[-1], future, measurement, flat,
-                ego2img, fpn_value, spatial_shapes, self.temporal_embedding,
-                self.static_embedding, pyramid,
-            )
-            wp_list.append(wp_list[-1] + dwp)
-            ctrl_list.append(ctrl_list[-1] + dct)
-            futures.append(future)
-            bevs.append(bev)
-            flats.append(flat)
+        def cascade(wp0, ctrl0):
+            """-> (waypoints and controls of every stage, offsets, futures,
+            BEVs and flat features of every layer)."""
+            wps, ctrls, off_wp, off_ctrl = [wp0], [ctrl0], [], []
+            bev, flat, future = bev32, flat_feat, None
+            futures, bevs, flats = [], [], []
+            for i in range(m.refine_num):
+                wp_c, ct_c = wps[-1].detach(), ctrls[-1].detach()
+                dwp, dct, future, bev, flat = getattr(self, f"layer{i}")(
+                    bev, wp_c, ct_c, future, measurement, flat, ego2img, fpn_value,
+                    spatial_shapes, self.temporal_embedding, self.static_embedding,
+                    pyramid, ida,
+                )
+                wps.append(wp_c + dwp)
+                ctrls.append(ct_c + dct)
+                off_wp.append(dwp)
+                off_ctrl.append(dct)
+                futures.append(future)
+                bevs.append(bev)
+                flats.append(flat)
+            return wps, ctrls, off_wp, off_ctrl, futures, bevs, flats
 
-        pred_ctrl = torch.clamp_min(F.softplus(torch.stack(ctrl_list, dim=1)), 1e-3)
-        outs["pred_wp"] = torch.stack(wp_list, dim=1)          # (B, R+1, T, 2)
+        wps, ctrls, _, _, futures, bevs, flats = cascade(wp, ctrl)
+        pred_ctrl = torch.clamp_min(F.softplus(torch.stack(ctrls, dim=1)), 1e-3)
+        outs["pred_wp"] = torch.stack(wps, dim=1)              # (B, R+1, T, 2)
         outs["mu_branches"] = pred_ctrl[:, :, 0, :2]
         outs["sigma_branches"] = pred_ctrl[:, :, 0, 2:]
         outs["future_mu"] = pred_ctrl[:, :, 1:, :2]
@@ -348,4 +366,13 @@ class ThinkTwiceDecoder(nn.Module):
         outs["refine_BEV_feature"] = torch.stack(bevs, dim=1)
         outs["refine_flat_feature"] = torch.stack(flats, dim=1)
         outs["refine_future_BEV_feature"] = torch.stack(futures, dim=1)
+
+        if teacher_wp is not None:
+            _, _, off_wp, off_ctrl, futures, bevs, flats = cascade(
+                teacher_wp, inv_softplus(teacher_ctrl_sp))
+            outs["teacher_pred_wp_offset"] = torch.stack(off_wp, dim=1)
+            outs["teacher_pred_ctrl_offset"] = torch.stack(off_ctrl, dim=1)
+            outs["teacher_future_BEV_feature"] = torch.stack(futures, dim=1)
+            outs["teacher_refine_BEV_feature"] = torch.stack(bevs, dim=1)
+            outs["teacher_refine_flat_feature"] = torch.stack(flats, dim=1)
         return outs

@@ -23,8 +23,17 @@ from typing import Sequence
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 EPS = 1e-6
+
+
+def remat(fn, *args):
+    """fn(*args), its activations recomputed in the backward instead of held
+    (flax's nn.remat) while gradients are on; a plain call otherwise."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def compute_dtype(x, dtype):

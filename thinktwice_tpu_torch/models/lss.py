@@ -7,6 +7,13 @@ UNet-style segmentation head whose features are re-injected at stride 16,
 and the frustum pooled onto the BEV grid by `ops/voxel_pool.lift_splat_pool`.
 The trunks compute in bfloat16 like the JAX package's; geometry, the depth
 softmax and the pooling stay float32.
+
+In training the neck and the segmentation head are rematerialized (the
+backbone per block, models/resnet.py), and the history sweeps run without
+gradients, as the JAX package's stop_gradient has them. An optional `ida`
+(B, N, 4, 4), the augmented-from-raw pixel transforms of train/augment.py,
+maps the frustum's pixels back before unprojection and conditions the
+depth net.
 """
 
 from __future__ import annotations
@@ -16,7 +23,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from thinktwice_tpu_torch.config import ModelConfig
-from thinktwice_tpu_torch.models.layers import Conv, ConvGN, Dense, resize_nearest
+from thinktwice_tpu_torch.models.layers import Conv, ConvGN, Dense, remat, resize_nearest
 from thinktwice_tpu_torch.models.resnet import PAFPN, ResNet
 from thinktwice_tpu_torch.ops.voxel_pool import lift_splat_pool
 
@@ -104,14 +111,22 @@ def make_frustum(cfg: ModelConfig, h: int, w: int, device=None):
                         ds[:, None, None].expand(D, h, w)], dim=-1)
 
 
-def frustum_to_ego(frustum, cam2ego, intrin_inv):
-    """frustum (D, h, w, 3); cam2ego (..., 4, 4); intrin_inv (3, 3) -> ego
-    xyz (..., D, h, w, 3)."""
+def frustum_to_ego(frustum, cam2ego, intrin_inv, ida=None):
+    """frustum (D, h, w, 3); cam2ego (N, 4, 4); intrin_inv (3, 3) -> ego
+    xyz (N, D, h, w, 3). With ida (B, N, 4, 4) the frustum's pixels live in
+    augmented image space and go back through ida^-1 first -> (B, N, D, h,
+    w, 3)."""
     u, v, d = frustum[..., 0], frustum[..., 1], frustum[..., 2]
+    if ida is not None:
+        a = ida[..., None, None, None, :, :]
+        det = a[..., 0, 0] * a[..., 1, 1]
+        u = (u - a[..., 0, 3]) * (a[..., 1, 1] / det)
+        v = (v - a[..., 1, 3]) * (a[..., 0, 0] / det)
+        d = d.expand_as(u)
     pix = torch.stack([u * d, v * d, d], dim=-1)
-    cam = torch.einsum("ij,dhwj->dhwi", intrin_inv, pix)
-    rot = torch.einsum("...ij,dhwj->...dhwi", cam2ego[..., :3, :3], cam)
-    return rot + cam2ego[..., None, None, None, :3, 3]
+    cam = torch.einsum("ij,...j->...i", intrin_inv, pix)
+    rot = (cam2ego[:, None, None, None, :3, :3] @ cam[..., None])[..., 0]
+    return rot + cam2ego[:, None, None, None, :3, 3]
 
 
 class LSS(nn.Module):
@@ -127,26 +142,31 @@ class LSS(nn.Module):
         self.depth_net = DepthNet(256, cfg.n_depth_bins, cfg.bev_channels,
                                   dtype=BF16)
 
-    def forward(self, imgs, cam2ego, intrinsics, ego2key=None):
+    def forward(self, imgs, cam2ego, intrinsics, ego2key=None, ida=None):
         """imgs (B, N, H, W, 3) normalized; cam2ego (N, 4, 4); intrinsics
         (3, 3); ego2key (B, 4, 4) the optional transform from this sweep's
-        ego frame into the key frame. -> dict bev (B, C, ny, nx) float32,
+        ego frame into the key frame; ida (B, N, 4, 4) the optional pixel
+        augmentation. -> dict bev (B, C, ny, nx) float32,
         fpn_feats list of (B*N, 256, h, w) float32, depth logits
         (B*N, D, h, w) and seg logits (B*N, n_seg, H/4, W/4) float32."""
         m = self.cfg
         B, N, H, W, _ = imgs.shape
         x = imgs.reshape(B * N, H, W, 3).permute(0, 3, 1, 2).to(BF16)
-        fpn = self.neck(self.backbone(x))
-        seg, seg_feat = self.seg_head(fpn)
+        fpn = remat(self.neck, self.backbone(x))
+        seg, seg_feat = remat(self.seg_head, fpn)
         f16 = fpn[2]
         h, w = f16.shape[-2:]
         f16 = f16 + self.seg_reinject(F.avg_pool2d(seg_feat, 4, 4))
 
         dev = imgs.device
-        ida = torch.tensor([1.0, 0.0, 0.0, 0.0, 1.0, 0.0], device=dev)
+        if ida is None:
+            ida_entries = torch.tensor([1.0, 0.0, 0.0, 0.0, 1.0, 0.0],
+                                       device=dev).expand(B * N, 6)
+        else:
+            ida_entries = ida[..., [0, 0, 0, 1, 1, 1], [0, 1, 3, 0, 1, 3]].reshape(B * N, 6)
         cam_params = torch.cat([
             intrinsics.reshape(1, 9).expand(B * N, 9),
-            ida.expand(B * N, 6),
+            ida_entries,
             cam2ego[:, :3, :].reshape(N, 12).repeat(B, 1),
         ], dim=-1)
         depth_logits, context = self.depth_net(f16, cam_params)
@@ -156,8 +176,8 @@ class LSS(nn.Module):
 
         D = m.n_depth_bins
         frustum = make_frustum(m, h, w, dev)
-        geom = frustum_to_ego(frustum, cam2ego, torch.linalg.inv(intrinsics))
-        geom = geom.reshape(1, N, D, h * w, 3)
+        geom = frustum_to_ego(frustum, cam2ego, torch.linalg.inv(intrinsics), ida)
+        geom = geom.reshape(-1, N, D, h * w, 3)
         if ego2key is not None:
             # frustum points move into the key frame before pooling, so a
             # history sweep's BEV lands on the key sweep's cells
@@ -181,7 +201,7 @@ class LSS(nn.Module):
 
 class MultiSweepLSS(nn.Module):
     """Key frame plus history sweeps through one LSS, their BEVs merged by a
-    1x1 conv."""
+    1x1 conv. The history sweeps carry no gradient."""
 
     def __init__(self, cfg: ModelConfig, backbone_depth: int = 50, n_sweeps: int = 1):
         super().__init__()
@@ -190,15 +210,17 @@ class MultiSweepLSS(nn.Module):
         if n_sweeps > 1:
             self.sweep_merge = Conv(n_sweeps * cfg.bev_channels, cfg.bev_channels, 1)
 
-    def forward(self, imgs_sweeps, cam2ego, intrinsics, sweep2key=None):
+    def forward(self, imgs_sweeps, cam2ego, intrinsics, sweep2key=None, ida=None):
         """imgs_sweeps (B, T, N, H, W, 3), the key sweep last; sweep2key
-        (B, T, 4, 4) the optional per-sweep ego(t) -> ego(key) transforms."""
-        out = self.lss(imgs_sweeps[:, -1], cam2ego, intrinsics)
+        (B, T, 4, 4) the optional per-sweep ego(t) -> ego(key) transforms;
+        ida (B, N, 4, 4) the optional pixel augmentation of every sweep."""
+        out = self.lss(imgs_sweeps[:, -1], cam2ego, intrinsics, ida=ida)
         if self.n_sweeps > 1:
             bevs = [out["bev"]]
             for t in range(self.n_sweeps - 1):
                 e2k = None if sweep2key is None else sweep2key[:, t]
-                bevs.append(self.lss(imgs_sweeps[:, t], cam2ego, intrinsics,
-                                     ego2key=e2k)["bev"])
+                with torch.no_grad():
+                    bevs.append(self.lss(imgs_sweeps[:, t], cam2ego, intrinsics,
+                                         ego2key=e2k, ida=ida)["bev"])
             out["bev"] = self.sweep_merge(torch.cat(bevs, dim=1))
         return out

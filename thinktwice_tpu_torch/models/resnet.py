@@ -4,6 +4,8 @@
 Depths 10 and 18 use BasicBlock, 50 uses Bottleneck (the student_rl6
 archive). `blocks[k]` holds the flax module `Checkpoint<Block>_k` (the
 backbone's blocks are rematerialized there, which prefixes their names).
+Here too each residual block is rematerialized while gradients are on
+(`layers.remat`), so a backward holds one block's activations at a time.
 """
 
 from __future__ import annotations
@@ -11,7 +13,7 @@ from __future__ import annotations
 from torch import nn
 from torch.nn import functional as F
 
-from thinktwice_tpu_torch.models.layers import Conv, ConvGN, GroupNorm
+from thinktwice_tpu_torch.models.layers import Conv, ConvGN, GroupNorm, remat
 
 
 class BasicBlock(nn.Module):
@@ -83,7 +85,7 @@ class ResNet(nn.Module):
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         outs = []
         for k, blk in enumerate(self.blocks):
-            x = blk(x)
+            x = remat(blk, x)
             if k in self.stage_ends:
                 outs.append(x)
         return outs

@@ -5,7 +5,9 @@ files, written by `flax.serialization.to_bytes`) into nested dicts of numpy
 arrays with a small msgpack decoder of its own: pure Python and `struct`,
 no msgpack package. It covers maps, arrays, str, bin, int, float, nil and
 bool, and flax's extension types 1 (an ndarray as a msgpack triple
-(shape, dtype name, bytes)) and 3 (a numpy scalar).
+(shape, dtype name, bytes)) and 3 (a numpy scalar). `packb` is the encoder
+beside it, with msgpack's choice of the smallest form of each value, so a
+tree of numpy arrays encodes to the bytes flax writes for it.
 
 `roach_state_dict_from_flax` maps the flax Roach param tree onto
 `agents.roach.RoachPolicy`'s state_dict: conv kernels HWIO -> OIHW, Dense
@@ -16,6 +18,7 @@ kernels (in, out) -> Linear weights (out, in).
 names: path for path, conv kernels HWIO -> OIHW, Dense kernels transposed,
 GroupNorm and LayerNorm `scale` -> `weight`; the backbone's rematerialized
 blocks `Checkpoint<Block>_k` go to `blocks.k` by their numeric suffix.
+`flax_tree_from_student_state_dict` is its inverse.
 """
 
 from __future__ import annotations
@@ -131,6 +134,86 @@ def unpackb(data: bytes):
     return out
 
 
+def _head(out: bytearray, n: int, small: int | None, small_max: int, codes) -> None:
+    """A length header: the fix form (small | n) when n <= small_max, else
+    the first of codes (8-, 16-, 32-bit) whose width holds n."""
+    if small is not None and n <= small_max:
+        out += struct.pack(">B", small | n)
+        return
+    for code, fmt, top in zip(codes, (">B", ">H", ">I"), (0xFF, 0xFFFF, 0xFFFFFFFF)):
+        if code is not None and n <= top:
+            out += struct.pack(">B", code) + struct.pack(fmt, n)
+            return
+    raise ValueError("msgpack object too large")
+
+
+def _int(out: bytearray, v: int) -> None:
+    if 0 <= v <= 0x7F or -32 <= v < 0:
+        out += struct.pack(">b" if v < 0 else ">B", v)
+        return
+    forms = ((0xCC, ">B", 0, 0xFF), (0xCD, ">H", 0, 0xFFFF), (0xCE, ">I", 0, 0xFFFFFFFF),
+             (0xCF, ">Q", 0, 2 ** 64 - 1)) if v >= 0 else (
+        (0xD0, ">b", -2 ** 7, 0), (0xD1, ">h", -2 ** 15, 0), (0xD2, ">i", -2 ** 31, 0),
+        (0xD3, ">q", -2 ** 63, 0))
+    for code, fmt, lo, hi in forms:
+        if lo <= v <= hi:
+            out += struct.pack(">B", code) + struct.pack(fmt, v)
+            return
+    raise ValueError(f"integer {v} out of msgpack's range")
+
+
+def _ext_bytes(code: int, data: bytes, out: bytearray) -> None:
+    fix = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if len(data) in fix:
+        out += struct.pack(">B", fix[len(data)])
+    else:
+        _head(out, len(data), None, 0, (0xC7, 0xC8, 0xC9))
+    out += struct.pack(">b", code) + data
+
+
+def _encode(obj, out: bytearray) -> None:
+    if obj is None:
+        out += b"\xc0"
+    elif isinstance(obj, (bool, np.bool_)):
+        out += b"\xc3" if obj else b"\xc2"
+    elif isinstance(obj, np.ndarray):
+        _ext_bytes(_EXT_NDARRAY, packb((obj.shape, obj.dtype.name, obj.tobytes("C"))), out)
+    elif isinstance(obj, np.generic):
+        _ext_bytes(_EXT_NPSCALAR,
+                   packb(((), np.asarray(obj).dtype.name, np.asarray(obj).tobytes())), out)
+    elif isinstance(obj, int):
+        _int(out, obj)
+    elif isinstance(obj, float):
+        out += b"\xcb" + struct.pack(">d", obj)
+    elif isinstance(obj, str):
+        data = obj.encode("utf-8")
+        _head(out, len(data), 0xA0, 31, (0xD9, 0xDA, 0xDB))
+        out += data
+    elif isinstance(obj, (bytes, bytearray)):
+        _head(out, len(obj), None, 0, (0xC4, 0xC5, 0xC6))
+        out += obj
+    elif isinstance(obj, (list, tuple)):
+        _head(out, len(obj), 0x90, 15, (None, 0xDC, 0xDD))
+        for v in obj:
+            _encode(v, out)
+    elif isinstance(obj, dict):
+        _head(out, len(obj), 0x80, 15, (None, 0xDE, 0xDF))
+        for k, v in obj.items():
+            _encode(k, out)
+            _encode(v, out)
+    else:
+        raise TypeError(f"cannot msgpack-encode {type(obj).__name__}")
+
+
+def packb(obj) -> bytes:
+    """Encode one object: dicts, lists and tuples of None, bool, int,
+    float, str, bytes, numpy arrays and numpy scalars (flax's extension
+    types)."""
+    out = bytearray()
+    _encode(obj, out)
+    return bytes(out)
+
+
 def load_flax_msgpack(path: str) -> dict:
     """A flax msgpack archive -> nested dicts of numpy arrays (the tree that
     flax.serialization.msgpack_restore gives)."""
@@ -235,6 +318,42 @@ def student_state_dict_from_flax(tree: dict, model: ThinkTwiceModel) -> dict:
     if missing:
         raise KeyError(f"{len(missing)} port parameters have no flax leaf: {missing[:8]}")
     return out
+
+
+def flax_tree_from_student_state_dict(state_dict: dict) -> dict:
+    """ThinkTwiceModel state_dict tensors -> the flax param tree {"params":
+    ...} of numpy float32 arrays (inverse of student_state_dict_from_flax).
+    The backbone's blocks take the flax name of their type, read from the
+    first block's first conv: a 1x1 conv opens a Bottleneck, a 3x3 one a
+    BasicBlock."""
+    first = [v for k, v in state_dict.items() if k.endswith("blocks.0.ConvGN_0.Conv_0.weight")]
+    block = "Bottleneck" if first and first[0].shape[-1] == 1 else "BasicBlock"
+    tree: dict = {}
+    for key, value in state_dict.items():
+        parts = key.split(".")
+        path = []
+        i = 0
+        while i < len(parts) - 1:
+            if parts[i] == "blocks":
+                path.append(f"Checkpoint{block}_{parts[i + 1]}")
+                i += 2
+            else:
+                path.append(parts[i])
+                i += 1
+        leaf = parts[-1]
+        a = value.detach().cpu().to(torch.float32).numpy()
+        if leaf == "weight":
+            if a.ndim == 4:
+                leaf, a = "kernel", np.transpose(a, (2, 3, 1, 0))
+            elif a.ndim == 2:
+                leaf, a = "kernel", a.T
+            else:
+                leaf = "scale"
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(a)
+    return {"params": tree}
 
 
 def student_arch(tree: dict) -> tuple[int, int]:
