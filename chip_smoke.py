@@ -15,7 +15,15 @@ against its CPU run on small inputs, and drives both rollouts:
   frames, 8 two-sweep examples each, and `loop.train` takes 3 AdamW steps
   of student_rl6 at full width on them; then one train step of a small
   student on the card against the CPU, and the parameter archive read
-  back.
+  back;
+- the Roach expert's training on the grid town: PPO at the fine-tune
+  recipe (24 worlds x 128 macro steps of 2 ticks, 48 vehicles, roach_bc5
+  anchored to itself, 4 epochs of minibatches of 512) for two iterations,
+  K1 against its plain version on a rollout frame, a small PPO iterate on
+  the card against the CPU, the breakdown of a macro step; then BC at its
+  recipe (24 worlds x 256 ticks, 96 vehicles, perturbation 0.05) for one
+  iteration and the held-out probe (8 worlds x 768 ticks), and a small BC
+  iterate on the card against the CPU.
 
     python3 chip_smoke.py                       # on a machine with one card
     python3 chip_smoke.py --device cpu --small  # CPU rehearsal, plain versions
@@ -64,6 +72,9 @@ TRAIN_FRAMES = 13          # frames a chunk: 13 - 4 - 1 = 8 two-sweep examples
 TRAIN_STEPS = 3            # optimizer steps of student_rl6
 TRAIN_TOL = 1e-3           # card vs CPU float32 train step: losses, grad_norm, the update
 GRAD_TOL, GRAD_COS = 1e-2, 0.99   # ... its gradient: of the norm; each leaf's cosine
+BC5_WEIGHTS = os.path.join(REPO, "runs", "roach_bc5", "params.msgpack")
+PPO_ENVS, PPO_STEPS, PPO_ITERS = 24, 128, 2   # the fine-tune recipe, two iterations
+BC_ROUTES = 32             # grid routes of the BC recipe; the tail 8 are the probe's
 
 
 def log(msg: str) -> None:
@@ -886,6 +897,7 @@ def train_step_card_and_cpu(cfg, part, device):
     optimizer's result, relative to the leaf's largest change; "moved",
     the largest change; the metrics and seconds on each."""
     from thinktwice_tpu_torch.train import loop
+    from thinktwice_tpu_torch.train.crosscheck import leaf_cosine
     from thinktwice_tpu_torch.train.train_step import (
         create_train_state, make_optimizer, make_train_step)
 
@@ -925,15 +937,6 @@ def train_step_card_and_cpu(cfg, part, device):
                    / max(float((ref[k] - start[k]).abs().max()), 1e-30) for k in ref},
         "moved": max(float((ref[k] - start[k]).abs().max()) for k in ref),
         "metrics": (m_d, m_c), "seconds": (s_d, s_c)}
-
-
-def leaf_cosine(a, b) -> float:
-    """Cosine of two gradient leaves: 1 where both are zero, 0 where one is."""
-    a, b = a.double(), b.double()
-    na, nb = float(a.norm()), float(b.norm())
-    if na == 0 or nb == 0:
-        return float(na == nb)
-    return float((a * b).sum()) / (na * nb)
 
 
 def train_card_vs_cpu(cfg, batch, device):
@@ -1183,6 +1186,279 @@ def train_phases(args, on_card: bool, device, card: str, n_vehicles: int) -> dic
     return rows
 
 
+
+# --------------------------------------------------------------------------
+# the Roach expert's training: PPO with the BC anchor, behavior cloning
+
+
+def expert_recipes(small: bool):
+    """(cfg, PPOConfig, BCConfig, PPO routes, BC routes): the fine-tune recipe
+    of scripts/finetune_roach_town05.py and the BC recipe of
+    scripts/train_bc_town05.py on the grid town at full width, or tiny
+    shapes for the CPU rehearsal."""
+    from thinktwice_tpu_torch.scripts.train_roach_ppo import build_routes, grid_config
+    from thinktwice_tpu_torch.train.bc import BCConfig
+    from thinktwice_tpu_torch.train.ppo import PPOConfig
+
+    if small:
+        pc = PPOConfig(n_envs=2, n_steps=4, n_epochs=1, minibatch=8, lr=3e-5, n_vehicles=2,
+                       policy_every=2, anchor_coef=0.05)
+        bcc = BCConfig(n_envs=2, n_steps=8, minibatch=8, n_epochs=1, n_vehicles=2,
+                       perturb_prob=0.05, eval_envs=2, eval_steps=8)
+        return grid_config(2), grid_config(2), pc, bcc, build_routes(2), build_routes(4)
+    pc = PPOConfig(n_envs=PPO_ENVS, n_steps=PPO_STEPS, n_epochs=4, minibatch=512, lr=3e-5,
+                   n_vehicles=48, policy_every=2, anchor_coef=0.05)
+    bcc = BCConfig(n_envs=24, n_steps=256, n_vehicles=96, perturb_prob=0.05)
+    return (grid_config(48), grid_config(96), pc, bcc, build_routes(PPO_ENVS),
+            build_routes(BC_ROUTES))
+
+
+def expert_card_vs_cpu(kind: str, device) -> None:
+    """crosscheck's small PPO (roach_bc5 anchored to roach_rl6) or BC
+    (roach_bc5, then its probe) iterate on the card against the CPU in
+    float32 (TF32 off), held to crosscheck's tolerances."""
+    from thinktwice_tpu_torch.train import crosscheck
+    from thinktwice_tpu_torch.weights import load_roach_policy
+
+    cfg = small_config()
+    start = load_roach_policy(BC5_WEIGHTS, cfg, device="cpu").state_dict()
+    anchor = load_roach_policy(WEIGHTS, cfg, device="cpu").state_dict()
+    runs = {dev: crosscheck.small_iterate(kind, cfg, dev, start, anchor)
+            for dev in (device, torch.device("cpu"))}
+    d, c = runs[device], runs[torch.device("cpu")]
+    r = crosscheck.compare(d, c)
+    sp, sb = crosscheck.SMALL_PPO, crosscheck.SMALL_BC
+    what = (f"PPO, {sp.n_envs} worlds x {sp.n_steps} macro steps, policy every "
+            f"{sp.policy_every}, roach_bc5 with the roach_rl6 anchor" if kind == "ppo" else
+            f"BC, {sb.n_envs} worlds x {sb.n_steps} ticks, perturbation {sb.perturb_prob} and "
+            f"DAgger mix {crosscheck.DAGGER_MIX}, and its probe")
+    log(f"[{kind} card vs cpu] {what}, float32: dones equal {r['dones_equal']} "
+        f"({int(c.done.sum())}); {r['n_metrics']} metrics within {r['metric_err']:.2e} "
+        f"({r['worst']}: {d.metrics[r['worst']]:.6f} vs {c.metrics[r['worst']]:.6f}); the first "
+        f"minibatch's gradient within {r['grad_err']:.2e} of its norm, its {r['n_leaves']} "
+        f"leaves at cosine >= {r['cos']:.6f} ({r['leaf']}); K1 launches {d.launches} on "
+        f"{device.type}, {c.launches} on cpu; {d.seconds:.2f} s on {device.type}, "
+        f"{c.seconds:.2f} s on cpu")
+    if not r["ok"]:
+        raise AssertionError(f"the {kind} iterate on the card disagrees with the CPU")
+
+
+def k1_frame_vs_plain(cfg, rec, tag: str) -> float:
+    """K1 against its plain version on the last primitive table a Spy of
+    birdview_bits recorded: 0 pixels may differ, and the frame must not be
+    empty. -> the decoded channels' max abs error."""
+    from thinktwice_tpu_torch.ops.birdview_cuda import (
+        birdview_bits_cuda,
+        birdview_bits_plain,
+        decode_bits,
+    )
+
+    _, prims, ego = rec.calls[-1][:3]
+    bits_k = birdview_bits_cuda(cfg, prims, ego)
+    bits_p = birdview_bits_plain(cfg, prims, ego)
+    torch.cuda.synchronize()
+    mism = int((bits_k != bits_p).sum())
+    err = float((decode_bits(cfg, bits_k) - decode_bits(cfg, bits_p)).abs().max())
+    log(f"[k1 vs plain, expert training path] {tag}, {tuple(prims.shape)} prims: "
+        f"{mism} of {bits_k.numel()} pixels differ, max abs err {err}")
+    if mism or int((bits_p != 0).sum()) == 0:
+        raise AssertionError(f"K1 differs from its plain version on {tag} (or it is empty)")
+    return err
+
+
+def expert_breakdown(cfg, pc, policy, anchor, town, routes, states, draws, peak_gib):
+    """Where a PPO macro step's time goes at the recipe's width, each stage
+    timed alone by CUDA events: the birdview (K1 with its inputs and the
+    decode), the policy and the anchor, one step_world, the hazard speed
+    and the reward of one tick, the reset of two worlds; one minibatch's
+    update (forward, backward, Adam); and the device's busy share over an
+    iterate of 8 macro steps under the profiler; with the PPO iterates'
+    peak memory."""
+    from thinktwice_tpu_torch.agents.expert import state_vector
+    from thinktwice_tpu_torch.sensors.birdview import birdview_from_state
+    from thinktwice_tpu_torch.sim.step import step_world
+    from thinktwice_tpu_torch.train.ppo import (
+        WorldBank, compute_reward, hazard_desired_speed, make_ppo)
+    from thinktwice_tpu_torch.train.train_step import Adam
+
+    W = states.n_worlds
+    ctrl = torch.tensor([[0.0, 0.5, 0.0]], device=town.device).expand(W, 3).contiguous()
+    bv = birdview_from_state(cfg.birdview, town, states)
+    sv = state_vector(states)
+    new, ev = step_world(cfg, town, states, ctrl, draws=draws.step(states))
+    bank = WorldBank(cfg, town, routes, pc.n_vehicles)
+    done = torch.zeros((W,), dtype=torch.bool, device=town.device)
+    done[:2] = True
+
+    def reward():
+        return compute_reward(states, new, ev, hazard_desired_speed(cfg, town, states))
+
+    with torch.no_grad():
+        stages = {
+            "birdview": lambda: birdview_from_state(cfg.birdview, town, states),
+            "policy+anchor": lambda: (policy(bv, sv), anchor(bv, sv)),
+            "step_world": lambda: step_world(cfg, town, states, ctrl, draws=draws.step(states)),
+            "hazard+reward": reward,
+            "reset 2 worlds": lambda: bank.reset_done(states, done, draws),
+        }
+        times = {k: cuda_ms(fn, reps=10) for k, fn in stages.items()}
+    per_macro = (times["birdview"] + times["policy+anchor"] + times["reset 2 worlds"]
+                 + pc.policy_every * (times["step_world"] + times["hazard+reward"]))
+    # one minibatch of the update: the loss, its gradient and Adam's step
+    short = dataclasses.replace(pc, n_steps=8, n_epochs=1)
+    _, it = make_ppo(cfg, short, town, routes, anchor=anchor)
+    n = pc.minibatch
+    g = torch.Generator(device=town.device).manual_seed(0)
+    flat = {"bv_u8": (bv[torch.arange(n, device=town.device) % W] * 255).to(torch.uint8),
+            "sv": sv[torch.arange(n, device=town.device) % W],
+            "action": torch.rand((n, 2), generator=g, device=town.device) * 2 - 1,
+            "logp": torch.zeros(n, device=town.device),
+            "anchor_alpha": torch.full((n, 2), 2.0, device=town.device),
+            "anchor_beta": torch.full((n, 2), 2.0, device=town.device),
+            "adv": torch.randn(n, generator=g, device=town.device),
+            "ret": torch.randn(n, generator=g, device=town.device)}
+    tx = Adam(pc.lr, 0.5, eps=1e-5)
+    opt = tx.init(dict(policy.named_parameters()))
+    before = {k: v.detach().clone() for k, v in policy.state_dict().items()}
+    upd_ms = cuda_ms(lambda: it.update_fn(policy, opt, flat, draws), reps=3, warmup=1)
+    policy.load_state_dict(before)
+    log(f"[expert train breakdown] ms per call at {W} worlds: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+        + f"; a macro step of {pc.policy_every} ticks ~{per_macro:.1f} ms; update "
+        f"{upd_ms:.1f} ms a minibatch of {n}; peak memory of the PPO iterates {peak_gib:.2f} GiB")
+    log(device_busy(lambda: it(policy, opt, states, draws), "one PPO iterate of 8 macro "
+                    "steps and one minibatch", "[expert train breakdown]"))
+    policy.load_state_dict(before)
+
+
+def expert_train_phases(args, on_card: bool, device, card: str) -> dict:
+    """The Roach expert's training path: PPO at the fine-tune recipe (from
+    roach_bc5, anchored to it) for PPO_ITERS iterations, K1 against its
+    plain version on the last frame of its rollout, the card against the
+    CPU, the breakdown; then BC at its recipe for one iteration and the
+    held-out probe, K1 against its plain version on the last frame of each,
+    and the card against the CPU. -> {"ppo": K1's launches in PPO, "bc":
+    in BC's iterate and probe, "err" (on the card): the largest decoded
+    error of those frames}."""
+    from thinktwice_tpu_torch.maps.procedural import make_grid_town
+    from thinktwice_tpu_torch.ops.birdview_cuda import K1
+    from thinktwice_tpu_torch.sensors import birdview as birdview_mod
+    from thinktwice_tpu_torch.train.bc import make_bc
+    from thinktwice_tpu_torch.train.draws import GeneratorTrainDraws
+    from thinktwice_tpu_torch.train.ppo import make_ppo
+    from thinktwice_tpu_torch.weights import load_roach_policy
+
+    ppo_cfg, bc_cfg, pc, bcc, ppo_routes, bc_routes = expert_recipes(args.small)
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+
+    # ---- PPO: the fine-tune recipe ----
+    town = make_grid_town(2, 100.0, device=device)
+    policy = load_roach_policy(BC5_WEIGHTS, ppo_cfg, device=device)
+    anchor = load_roach_policy(BC5_WEIGHTS, ppo_cfg, device=device).requires_grad_(False)
+    init_fn, iterate = make_ppo(ppo_cfg, pc, town, ppo_routes, anchor=anchor)
+    draws = GeneratorTrainDraws(town, 9)
+    _, opt, env = init_fn(draws)
+    before = {k: v.detach().clone() for k, v in policy.state_dict().items()}
+    marks = {}
+
+    def probe(stage, _):
+        if stage == "rollout":
+            sync()
+            marks["rollout"] = time.perf_counter()
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    K1.launches = 0
+    ticks = pc.n_envs * pc.n_steps * pc.policy_every
+    with Spy(birdview_mod, "birdview_bits", keep=1) as k1_rec:
+        for i in range(PPO_ITERS if not args.small else 1):
+            sync()
+            t0 = time.perf_counter()
+            policy, opt, env, m = iterate(policy, opt, env, draws, probe=probe)
+            sync()
+            t1 = time.perf_counter()
+            roll_s, upd_s = marks["rollout"] - t0, t1 - marks["rollout"]
+            vals = {k: float(v) for k, v in m.items()}
+            log(f"[ppo iterate] {i}: {pc.n_envs} worlds x {pc.n_steps} macro steps of "
+                f"{pc.policy_every} ticks, {pc.n_vehicles} vehicles, roach_bc5 with its anchor "
+                f"{pc.anchor_coef}: rollout {roll_s:.2f} s ({ticks / roll_s:.1f} env-steps/s), "
+                f"update {upd_s:.2f} s ({pc.n_epochs} epochs of "
+                f"{max(pc.n_envs * pc.n_steps // pc.minibatch, 1)} minibatches of "
+                f"{pc.minibatch}) on {card}; "
+                + ", ".join(f"{k} {v:.5f}" for k, v in vals.items()))
+            if not all(np.isfinite(v) for v in vals.values()) or "anchor_kl" not in vals:
+                raise AssertionError("a PPO metric is not finite, or anchor_kl is missing")
+    ppo_k1 = K1.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else float("nan")
+    n_it = PPO_ITERS if not args.small else 1
+    expected = n_it * (pc.n_steps + 1) if on_card else 0
+    changed = sum(int(not torch.equal(v, policy.state_dict()[k])) for k, v in before.items())
+    log(f"[ppo iterate] K1 launches {ppo_k1} (expected {expected}: {pc.n_steps} macro steps "
+        f"and the bootstrap an iterate); {changed} of {len(before)} parameter tensors changed; "
+        f"peak memory {peak:.2f} GiB")
+    if ppo_k1 != expected or changed == 0:
+        raise AssertionError(f"PPO launched K1 {ppo_k1} times and changed {changed} tensors")
+    rows = {"ppo": ppo_k1}
+    if on_card:
+        rows["err"] = k1_frame_vs_plain(ppo_cfg.birdview, k1_rec, "the PPO rollout's last frame")
+        expert_card_vs_cpu("ppo", device)
+        expert_breakdown(ppo_cfg, pc, policy, anchor, town, torch.as_tensor(ppo_routes),
+                         env, draws, peak)
+    else:
+        log("[ppo card vs cpu] no card: skipped on the CPU rehearsal")
+    del policy, anchor, opt, env, iterate, init_fn, k1_rec
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # ---- BC: the autopilot's clone, one iteration and the probe ----
+    init_fn, iterate = make_bc(bc_cfg, bcc, town, bc_routes)
+    draws = GeneratorTrainDraws(town, 10)
+    policy, opt, env = init_fn(draws)
+    K1.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    with Spy(birdview_mod, "birdview_bits", keep=1) as bc_rec:
+        policy, opt, env, m = iterate(policy, opt, env, draws, probe=probe)
+    sync()
+    t1 = time.perf_counter()
+    bc_it_k1 = K1.launches
+    vals = {k: float(v) for k, v in m.items()}
+    frames = bcc.n_envs * bcc.n_steps
+    log(f"[bc iterate] {bcc.n_envs} worlds x {bcc.n_steps} ticks, {bcc.n_vehicles} vehicles, "
+        f"perturbation {bcc.perturb_prob}: rollout {marks['rollout'] - t0:.2f} s "
+        f"({frames / (marks['rollout'] - t0):.1f} env-steps/s), update "
+        f"{t1 - marks['rollout']:.2f} s on {card}; K1 launches {bc_it_k1}; "
+        + ", ".join(f"{k} {v:.5f}" for k, v in vals.items()))
+    K1.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    with Spy(birdview_mod, "birdview_bits", keep=1) as probe_rec:
+        ev = {k: float(v) for k, v in iterate.eval_fn(policy, draws).items()}
+    sync()
+    probe_s = time.perf_counter() - t0
+    bc_probe_k1 = K1.launches
+    exp_it, exp_probe = ((bcc.n_steps // 2, bcc.eval_steps // 2) if on_card else (0, 0))
+    log(f"[bc probe] {bcc.eval_envs} held-out routes x {bcc.eval_steps} ticks in {probe_s:.2f} s "
+        f"on {card}: " + ", ".join(f"{k} {v:.5f}" for k, v in ev.items())
+        + f"; K1 launches {bc_probe_k1} (expected {exp_probe}; the iterate {bc_it_k1}, "
+        f"expected {exp_it})")
+    if not all(np.isfinite(v) for v in {**vals, **ev}.values()):
+        raise AssertionError("a BC metric is not finite")
+    if (bc_it_k1, bc_probe_k1) != (exp_it, exp_probe):
+        raise AssertionError(f"BC launched K1 {bc_it_k1} + {bc_probe_k1} times")
+    rows["bc"] = bc_it_k1 + bc_probe_k1
+    del policy, opt, env
+    if on_card:
+        rows["err"] = max(rows["err"],
+                          k1_frame_vs_plain(bc_cfg.birdview, bc_rec, "the BC rollout's last frame"),
+                          k1_frame_vs_plain(bc_cfg.birdview, probe_rec, "the BC probe's last frame"))
+        del bc_rec, probe_rec
+        expert_card_vs_cpu("bc", device)
+    else:
+        log("[bc card vs cpu] no card: skipped on the CPU rehearsal")
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -1329,14 +1605,25 @@ def main() -> int:
     if on_card:
         torch.cuda.empty_cache()
 
-    # ---- phase 8: the student's training, the last main path --------------
+    # ---- phase 8: the student's training ----------------------------------
     train = train_phases(args, on_card, device, card, n_vehicles)
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # ---- phase 9: the Roach expert's training, the last main path ---------
+    k2_before = K2.launches
+    expert = expert_train_phases(args, on_card, device, card)
+    if K2.launches != k2_before:
+        raise AssertionError("the expert's training launched K2")
 
     if on_card:
         k1_row["train_launches"], k2_row["train_launches"] = train["k1_train"], train["k2_train"]
-        k1_row["max_abs_err"] = max(k1_row["max_abs_err"], train["k1_err"])
+        k1_row["ppo_launches"], k1_row["bc_launches"] = expert["ppo"], expert["bc"]
+        k2_row["ppo_launches"] = k2_row["bc_launches"] = 0
+        k1_row["max_abs_err"] = max(k1_row["max_abs_err"], train["k1_err"], expert["err"])
         k2_row["max_abs_err"] = max(k2_row["max_abs_err"], train["k2_err"])
         keys = ("name", "route", "source", "replaces", "launches", "train_launches",
+                "ppo_launches", "bc_launches",
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         log(json.dumps({"kernels": [{k: row[k] for k in keys} for row in (k1_row, k2_row)]}))
         log(card_line(device))

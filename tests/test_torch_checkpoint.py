@@ -11,6 +11,10 @@ against flax and thinktwice_tpu on the CPU.
   checkpoint (the step count goes on; a step with IDA augmentation), and
   from `params.msgpack` beside the checkpoint directory once that
   directory is gone (fresh optimizer state).
+- A Roach policy's archive written by the port is read by the JAX
+  package's restore_pytree and by the port's load_roach_policy (equal
+  leaves, the same forward), and the repository's Roach archives
+  (roach_bc5, roach_rl5, roach_rl6) give the same forward in both packages.
 """
 
 import itertools
@@ -21,6 +25,7 @@ import shutil
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 from flax import serialization
 
@@ -160,3 +165,98 @@ def test_train_resumes_from_its_checkpoint_and_from_the_archive(tmp_path, capsys
     assert state.step == 0 and state.opt_state.count == 0
     for k, v in m3.state_dict().items():
         assert torch.equal(v, want[k]), k
+
+
+# --------------------------------------------------------------------------
+# Roach archives, both ways
+
+ROACH_RUNS = ("roach_bc5", "roach_rl5", "roach_rl6")
+ROACH_PARAMS = 1_460_021
+
+
+def _roach_raster():
+    rng = np.random.default_rng(0)
+    bv = rng.choice([0.0, 80 / 255, 120 / 255, 1.0], size=(2, 15, 192, 192)).astype(np.float32)
+    sv = np.array([[0.5, 0.1, 0.0, 1.0, 4.0, 0.0], [0.0, -0.2, 1.0, 1.0, 0.5, 0.0]], np.float32)
+    return bv, sv
+
+
+def _assert_roach_forward(policy, jparams, tol=1e-4):
+    from thinktwice_tpu.agents.roach import RoachPolicy as JaxRoachPolicy
+
+    bv, sv = _roach_raster()
+    ref = JaxRoachPolicy().apply(jparams, jnp.asarray(bv), jnp.asarray(sv))
+    with torch.no_grad():
+        out = policy(torch.from_numpy(bv), torch.from_numpy(sv))
+    for key in ("alpha", "beta", "value"):
+        np.testing.assert_allclose(out[key].numpy(), np.asarray(ref[key]), rtol=tol, atol=tol,
+                                   err_msg=key)
+    return out
+
+
+def test_roach_archive_is_read_by_both_packages(tmp_path):
+    """A RoachPolicy drawn from the JAX package's initial distribution,
+    archived by the port: the JAX package's restore_pytree reads every leaf
+    bit for bit into its own template, the port's load_roach_policy gives
+    the same state_dict and, on the same raster, the JAX forward's alpha,
+    beta and value within 1e-4 and its own forward bit for bit."""
+    from thinktwice_tpu.agents.roach import RoachPolicy as JaxRoachPolicy
+    from thinktwice_tpu_torch.agents.roach import RoachPolicy, init_roach_params
+    from thinktwice_tpu_torch.weights import flax_tree_from_roach_state_dict, load_roach_policy
+
+    cfg = Config()
+    policy = RoachPolicy.from_config(cfg)
+    init_roach_params(policy, torch.Generator().manual_seed(3))
+    assert sum(p.numel() for p in policy.parameters()) == ROACH_PARAMS
+    path = str(tmp_path / "params.msgpack")
+    ckpt.archive_params(path, policy.state_dict())
+
+    template = JaxRoachPolicy().init(jax.random.key(0), jnp.zeros((1, 15, 192, 192)),
+                                     jnp.zeros((1, 6)))
+    restored = jax_ckpt.restore_pytree(path, template)
+    want = flax_tree_from_roach_state_dict(policy.state_dict())
+    assert jax.tree.structure(restored) == jax.tree.structure(want)
+    for a, b in zip(jax.tree.leaves(restored), jax.tree.leaves(want)):
+        assert a.dtype == np.float32 and np.array_equal(a, b)
+
+    loaded = load_roach_policy(path, cfg, device="cpu")
+    for k, v in policy.state_dict().items():
+        assert torch.equal(loaded.state_dict()[k], v), k
+    out = _assert_roach_forward(loaded, restored)
+    with torch.no_grad():
+        again = policy(*(torch.from_numpy(x) for x in _roach_raster()))
+    for key in ("alpha", "beta", "value"):
+        assert torch.equal(out[key], again[key])
+    # the archive restores into a RoachPolicy template through the port's
+    # restore_pytree too
+    sd = ckpt.restore_pytree(path, RoachPolicy.from_config(cfg))
+    assert all(torch.equal(sd[k], v) for k, v in policy.state_dict().items())
+
+
+@pytest.mark.parametrize("run", ROACH_RUNS)
+def test_roach_runs_give_the_same_forward_in_both_packages(run):
+    """Each Roach archive of the repository at full size (1,460,021
+    parameters): the port's forward within 1e-4 of the JAX package's, and
+    the archive rewritten by the port holds the same leaves."""
+    from thinktwice_tpu_torch.weights import flax_tree_from_roach_state_dict, load_roach_policy
+
+    path = os.path.join(REPO, "runs", run, "params.msgpack")
+    with open(path, "rb") as f:
+        jparams = serialization.msgpack_restore(f.read())
+    policy = load_roach_policy(path, Config(), device="cpu")
+    assert sum(p.numel() for p in policy.parameters()) == ROACH_PARAMS
+    _assert_roach_forward(policy, jparams)
+    back = flax_tree_from_roach_state_dict(policy.state_dict())
+    flat_a = dict(_flat(jparams))
+    flat_b = dict(_flat(back))
+    assert flat_a.keys() == flat_b.keys()
+    for k in flat_a:
+        assert np.array_equal(np.asarray(flat_a[k], np.float32), flat_b[k]), k
+
+
+def _flat(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v

@@ -1,7 +1,9 @@
 """PyTorch port on the card: each CUDA kernel against its plain version (K1
 the birdview rasterizer, K2 the ray-vs-box intersector), also on a frame
-collected for training, the card's world step against the CPU's, and one
-train step of a tiny student on the card against the CPU. These tests need an NVIDIA card and skip
+collected for training, the card's world step against the CPU's, one
+train step of a tiny student, and one small PPO and BC iterate of the
+Roach expert (K1 on their rollouts), on the card against the CPU. These
+tests need an NVIDIA card and skip
 without one; they import no JAX, so on a machine with a card and no JAX
 they run with
 
@@ -53,6 +55,37 @@ def test_k1_matches_plain_on_card(card):
     assert k1.K1.launches == before + 1
     assert torch.equal(bits, k1.birdview_bits_plain(CFG.birdview, prims, ego))
     assert torch.equal(bits.cpu(), k1.birdview_bits_plain(CFG.birdview, prims.cpu(), ego.cpu()))
+
+
+@pytest.mark.cuda
+def test_k1_pixel_on_a_box_edge_matches_plain_on_card(card):
+    """One world for each birdview row whose distance ahead of the ego,
+    (W - ev_bottom - r) / ppm, rounds differently when taken as a product
+    with 1 / ppm: the ego at the origin facing +x, and a box whose front
+    edge lies at the smaller of the two values. Row r is covered or not by
+    that rounding alone, so K1, its plain version on the card and on the
+    CPU agree only if all three divide."""
+    cfg = CFG.birdview
+    W = cfg.width
+    ahead = float(W) - float(cfg.pixels_ev_to_bottom) - torch.arange(W, dtype=torch.float32)
+    exact = ahead / torch.tensor(cfg.pixels_per_meter)
+    by_inverse = ahead * torch.tensor(1.0 / cfg.pixels_per_meter, dtype=torch.float32)
+    rows = torch.nonzero((exact != by_inverse) & (ahead > 0))[:, 0]
+    assert len(rows) > 0
+    n = len(rows)
+    prims = torch.zeros((n, 1, 8))
+    prims[:, 0, 0] = 1.0                                   # a box, bit 0
+    prims[:, 0, 4] = 1.0                                   # cos 1, sin 0
+    prims[:, 0, 6] = torch.minimum(exact, by_inverse)[rows]
+    prims[:, 0, 7] = 100.0
+    ego = torch.tensor([[0.0, 0.0, 1.0, 0.0]]).expand(n, 4).contiguous()
+    on_cpu = k1.birdview_bits_plain(cfg, prims, ego)
+    bits = k1.birdview_bits(cfg, prims.to(card), ego.to(card))
+    torch.cuda.synchronize()
+    assert torch.equal(bits.cpu(), on_cpu)
+    assert torch.equal(k1.birdview_bits_plain(cfg, prims.to(card), ego.to(card)).cpu(), on_cpu)
+    covered = on_cpu[torch.arange(n), rows].bool().all(dim=-1)
+    assert torch.equal(covered, exact[rows] <= by_inverse[rows])
 
 
 @pytest.mark.cuda
@@ -432,3 +465,29 @@ def test_train_step_on_card_matches_cpu(card, monkeypatch):
         change = float((ref[k] - start[k]).abs().max())
         assert change > 0, k
         assert float((p_d[k] - ref[k]).abs().max()) <= 1e-3 * change, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ppo", "bc"])
+def test_expert_iterate_on_card_matches_cpu(card, kind, monkeypatch):
+    """crosscheck's small PPO or BC iterate (BC then its probe) on the card
+    against the CPU in float32 (TF32 off), the same weights and draws: K1
+    launched once a macro step (and once for PPO's bootstrap, never on the
+    CPU), equal dones, metrics within 1e-3 (absolute plus relative), the
+    first minibatch's gradient within 1e-2 of its norm and every leaf at a
+    cosine of at least 0.99."""
+    from thinktwice_tpu_torch.train import crosscheck
+    from thinktwice_tpu_torch.train.ppo import make_policy
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    start, anchor = (make_policy(CFG, "cpu", torch.Generator().manual_seed(seed)).state_dict()
+                     for seed in (4, 8))
+    cpu = crosscheck.small_iterate(kind, CFG, "cpu", start, anchor, seed=2)
+    dev = crosscheck.small_iterate(kind, CFG, card, start, anchor, seed=2)
+    expected = (crosscheck.SMALL_PPO.n_steps + 1 if kind == "ppo"
+                else crosscheck.SMALL_BC.n_steps // 2)
+    assert cpu.launches == 0 and dev.launches == expected
+    assert (crosscheck.METRIC_TOL, crosscheck.GRAD_TOL, crosscheck.GRAD_COS) == (1e-3, 1e-2, 0.99)
+    r = crosscheck.compare(dev, cpu)
+    assert r["ok"], r

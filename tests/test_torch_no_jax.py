@@ -6,10 +6,14 @@ those modules (and the JAX package) cannot be imported, every module of
 thinktwice_tpu_torch imports; `python -m thinktwice_tpu_torch.cli evaluate
 --device cpu` scores two routes, `cli collect --device cpu` writes a batch
 of 5 frames and `python -m thinktwice_tpu_torch.bench --device cpu` prints
-its record at a tiny size; and `chip_smoke.py --device cpu --small` runs to
-exit 0, the Roach rollout, the tiny student's closed loop, the three
-evaluator phases and the training phases (collection, 3 steps of
-loop.train, the archive read back) included; nothing reaches
+its record at a tiny size; the expert trainers' scripts
+(`scripts.train_roach_ppo` with the fine-tune options, `scripts.train_bc`)
+take two iterations each with --device cpu and write their metrics and a
+params.msgpack the port reads back; and `chip_smoke.py --device cpu
+--small` runs to exit 0, the Roach rollout, the tiny student's closed
+loop, the three evaluator phases, the training phases (collection, 3
+steps of loop.train, the archive read back) and the expert's training
+phases (PPO, BC and its probe) included; nothing reaches
 torch.utils.cpp_extension.
 """
 
@@ -45,6 +49,24 @@ with tempfile.TemporaryDirectory() as tmp:
     import torch
     batch = torch.load(tmp + "/batch.pt", weights_only=True)
     print("collected batch", tuple(batch["imgs"].shape), flush=True)
+with tempfile.TemporaryDirectory() as tmp:
+    sys.argv = ["train_roach_ppo", "--device", "cpu", "--envs", "2", "--steps", "4",
+                "--iters", "2", "--vehicles", "2", "--minibatch", "8", "--epochs", "1",
+                "--policy-every", "2", "--init", "runs/roach_bc5/params.msgpack",
+                "--anchor", "0.05", "--lr", "3e-5", "--scenarios", "--out", tmp + "/ppo"]
+    runpy.run_module("thinktwice_tpu_torch.scripts.train_roach_ppo", run_name="__main__")
+    sys.argv = ["train_bc", "--device", "cpu", "--envs", "2", "--steps", "8", "--iters", "2",
+                "--vehicles", "2", "--minibatch", "8", "--epochs", "1", "--routes", "4",
+                "--eval-envs", "2", "--eval-steps", "8", "--eval-every", "1", "--scenarios",
+                "--out", tmp + "/bc"]
+    runpy.run_module("thinktwice_tpu_torch.scripts.train_bc", run_name="__main__")
+    from thinktwice_tpu_torch.agents.roach import RoachPolicy
+    from thinktwice_tpu_torch.config import Config
+    from thinktwice_tpu_torch.train.checkpoint import restore_pytree
+    for name in ("ppo", "bc"):
+        lines = open(f"{{tmp}}/{{name}}/metrics.jsonl").read().splitlines()
+        sd = restore_pytree(f"{{tmp}}/{{name}}/params.msgpack", RoachPolicy.from_config(Config()))
+        print("trained", name, len(lines), "lines", len(sd), "tensors", flush=True)
 sys.argv = ["bench", "--device", "cpu", "--worlds", "2", "--steps", "4"]
 runpy.run_module("thinktwice_tpu_torch.bench", run_name="__main__")
 sys.argv = ["chip_smoke.py", "--device", "cpu", "--small"]
@@ -77,12 +99,19 @@ def test_port_and_smoke_run_without_jax_stack():
     assert lines[lines.index(json.dumps(bench)) + 1] == "cpu"
     assert "collected batch (1, 1, 4, 256, 512, 3)" in lines
     for tag in ("[eval card vs cpu] autopilot", "[eval card vs cpu] expert", "[eval expert]",
-                "[eval student]", "[train collect]", "[train step] 3:", "[train checkpoint]"):
+                "[eval student]", "[train collect]", "[train step] 3:", "[train checkpoint]",
+                "[ppo iterate] 0:", "[ppo card vs cpu]", "[bc iterate]", "[bc probe]",
+                "[bc card vs cpu]"):
         assert any(line.startswith(tag) for line in lines), tag
     assert any(line.startswith("[rollout] ") for line in lines)
     assert any(line.startswith("[student] 2 worlds x 4 ticks") for line in lines)
     assert any(line.startswith("[train checkpoint]") and "bit for bit True" in line
                for line in lines)
+    assert "trained ppo 2 lines 32 tensors" in lines and "trained bc 2 lines 32 tensors" in lines
+    ppo = [json.loads(line) for line in lines if line.startswith('{"anchor_kl"')]
+    assert [r["iter"] for r in ppo] == [0, 1] and "env_steps" in ppo[0]
+    bc = [json.loads(line) for line in lines if line.startswith('{"action_mae"')]
+    assert [r["iter"] for r in bc] == [0, 1] and "cl_completion" in bc[0]
     assert "cpp_extension loaded: False" in lines
     last = json.loads(lines[-2])
     assert last == {"ok": True, "device": {"platform": "cpu", "kind": "cpu", "count": 1}}

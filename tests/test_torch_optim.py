@@ -14,6 +14,11 @@ CPU.
 - The train step's probe sees one forward a chunk, then the averaged
   gradients, then the step's learning rate.
 - A train state saved and restored takes the same next step, bit for bit.
+- The expert trainers' Adam holds to optax.chain(clip_by_global_norm,
+  adam(lr, eps)) over 3 steps, to 1e-6 (the parameters' change to 1e-3
+  of a step of lr): PPO's clip 0.5, eps 1e-5 at lr
+  3e-5 and BC's clip 1.0, eps 1e-8 at lr 3e-4, with one gradient under the
+  clip, one over it and one with elements far below eps.
 """
 
 import jax.numpy as jnp
@@ -28,6 +33,7 @@ from thinktwice_tpu.train.train_step import make_optimizer as jax_make_optimizer
 from thinktwice_tpu_torch.config import Config, TrainConfig
 from thinktwice_tpu_torch.train import checkpoint as ckpt_lib
 from thinktwice_tpu_torch.train.train_step import (
+    Adam,
     create_train_state,
     global_norm,
     make_optimizer,
@@ -151,3 +157,32 @@ def test_saved_train_state_takes_the_same_next_step(tmp_path):
     assert state2.step == 2
     for k, v in after.items():
         assert torch.equal(state2.params[k], v), k
+
+
+@pytest.mark.parametrize("clip,eps,lr", [(0.5, 1e-5, 3e-5), (1.0, 1e-8, 3e-4)])
+def test_adam_matches_optax(clip, eps, lr):
+    rng = np.random.default_rng(1)
+    params = {k: rng.standard_normal(s).astype(np.float32) for k, s in SHAPES.items()}
+    tx_j = optax.chain(optax.clip_by_global_norm(clip), optax.adam(lr, eps=eps))
+    tx = Adam(lr, clip, eps=eps)
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    jstate = tx_j.init(jp)
+    tp = {k: torch.tensor(v) for k, v in params.items()}
+    tstate = tx.init(tp)
+    for step, scale in enumerate((0.01, 5.0, 1e-7)):
+        grads = {k: (rng.standard_normal(s) * scale).astype(np.float32)
+                 for k, s in SHAPES.items()}
+        updates, jstate = tx_j.update({k: jnp.asarray(g) for k, g in grads.items()}, jstate, jp)
+        jp = optax.apply_updates(jp, updates)
+        tstate, used = tx.step(tp, {k: torch.tensor(g) for k, g in grads.items()}, tstate)
+        assert used == lr
+        for k in params:
+            ref = np.asarray(jp[k])
+            np.testing.assert_allclose(tp[k].numpy(), ref, rtol=1e-6,
+                                       atol=1e-6 * np.abs(ref).max(), err_msg=f"{k} step {step}")
+            # the parameters' change, to 1e-3 of a step of lr
+            moved = ref.astype(np.float64) - params[k]
+            np.testing.assert_allclose(tp[k].numpy() - params[k].astype(np.float64), moved,
+                                       rtol=0, atol=1e-3 * lr, err_msg=f"{k} step {step}")
+            assert 0.5 * lr < np.abs(moved).max() <= 3.5 * lr
+    assert tstate.count == 3

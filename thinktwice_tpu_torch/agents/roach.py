@@ -13,12 +13,14 @@ state vector [throttle, steer, brake, gear, vel_x, vel_y].
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
 from torch import nn
 from torch.nn import functional as F
 
+TRUNC_STD = 0.87962566103423978   # std of a standard normal truncated to [-2, 2]
 CONV_SPECS = ((8, 5, 2), (16, 5, 2), (32, 5, 2), (64, 3, 2), (128, 3, 2),
               (256, 3, 1))
 
@@ -136,6 +138,37 @@ def beta_sample(alpha, beta, generator: torch.Generator | None = None):
     g2 = torch._standard_gamma(beta, generator=generator)
     x = g1 / torch.clamp_min(g1 + g2, 1e-9)
     return x * 2.0 - 1.0
+
+
+def beta_log_prob(actions_pm1, alpha, beta):
+    """Log-density of actions in [-1, 1] under the Beta on [0, 1], summed
+    over the action dims."""
+    x = torch.clamp((actions_pm1 + 1.0) / 2.0, 1e-6, 1 - 1e-6)
+    lg = torch.lgamma
+    lp = ((alpha - 1) * torch.log(x) + (beta - 1) * torch.log1p(-x)
+          - (lg(alpha) + lg(beta) - lg(alpha + beta)))
+    return torch.sum(lp, dim=-1)
+
+
+@torch.no_grad()
+def init_roach_params(policy: RoachPolicy, generator: torch.Generator) -> None:
+    """Set every parameter to the JAX package's initial distribution, drawn
+    from generator: convolutions xavier_uniform with bias 0.1, Dense layers
+    lecun_normal (a normal of variance 1 / fan_in truncated at two standard
+    deviations) with bias 0."""
+    for name, p in policy.named_parameters():
+        if name.endswith("bias"):
+            p.fill_(0.1 if ".convs." in name else 0.0)
+        elif p.dim() == 4:
+            fan_in, fan_out = math.prod(p.shape[1:]), p.shape[0] * math.prod(p.shape[2:])
+            lim = math.sqrt(6.0 / (fan_in + fan_out))
+            u = torch.rand(p.shape, generator=generator, device=p.device)
+            p.copy_(u * 2 * lim - lim)
+        else:
+            std = math.sqrt(1.0 / p.shape[1]) / TRUNC_STD
+            z = torch.empty(p.shape, device=p.device)
+            torch.nn.init.trunc_normal_(z, 0.0, 1.0, -2.0, 2.0, generator=generator)
+            p.copy_(z * std)
 
 
 def acc_to_control(action_pm1):

@@ -152,9 +152,11 @@ def pixel_world_coords(cfg: BirdviewConfig, ego):
     dev = ego.device
     rows = torch.arange(W, dtype=torch.float32, device=dev)[:, None].expand(W, W)
     cols = torch.arange(W, dtype=torch.float32, device=dev)[None, :].expand(W, W)
-    a = ((float(W) - float(cfg.pixels_ev_to_bottom) - rows)
-         / cfg.pixels_per_meter).reshape(1, -1)
-    b = ((cols - 0.5 * float(W)) / cfg.pixels_per_meter).reshape(1, -1)
+    # a tensor divisor: PyTorch on the card multiplies by the reciprocal of
+    # a Python number divisor, which rounds unlike the kernel's division
+    ppm = torch.tensor(cfg.pixels_per_meter, dtype=torch.float32, device=dev)
+    a = ((float(W) - float(cfg.pixels_ev_to_bottom) - rows) / ppm).reshape(1, -1)
+    b = ((cols - 0.5 * float(W)) / ppm).reshape(1, -1)
     ex, ey, c, s = (ego[:, i, None] for i in range(4))
     wx = ex + a * c + b * (-s)
     wy = ey + a * s + b * c

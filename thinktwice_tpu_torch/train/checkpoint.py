@@ -1,9 +1,10 @@
 """Checkpoints of training (counterpart of `thinktwice_tpu/train/checkpoint.py`).
 
-- `archive_params` / `restore_archive`: the single-file parameter archive in
-  flax's msgpack format (`params.msgpack`), written with `weights.packb`
-  and read with `weights.load_flax_msgpack`, so the JAX package and flax
-  read the port's archives and the port reads theirs. The write is an
+- `archive_params` / `restore_archive`: the single-file parameter archive of
+  the student or the Roach policy in flax's msgpack format
+  (`params.msgpack`), written with `weights.packb` and read with
+  `weights.load_flax_msgpack`, so the JAX package and flax read the port's
+  archives and the port reads theirs. The write is an
   atomic replace: a killed trainer leaves the old archive whole.
 - `save_train_state` / `restore_train_state`: step, parameters and the
   optimizer's moments, one `torch.save` file per step in the checkpoint
@@ -22,6 +23,7 @@ import torch
 from thinktwice_tpu_torch.agents.roach import RoachPolicy
 from thinktwice_tpu_torch.train.train_step import AdamState, TrainState
 from thinktwice_tpu_torch.weights import (
+    flax_tree_from_roach_state_dict,
     flax_tree_from_student_state_dict,
     load_flax_msgpack,
     packb,
@@ -84,9 +86,13 @@ def restore_train_state(ckpt_dir: str, template: TrainState) -> TrainState:
 
 
 def archive_params(path: str, params: dict) -> None:
-    """ThinkTwiceModel parameters (state_dict tensors, by name) -> a flax
-    msgpack archive of float32 leaves."""
-    data = packb(flax_tree_from_student_state_dict(params))
+    """ThinkTwiceModel or RoachPolicy parameters (state_dict tensors, by
+    name) -> a flax msgpack archive of float32 leaves."""
+    if "features_extractor.linear0.weight" in params:
+        tree = flax_tree_from_roach_state_dict(params)
+    else:
+        tree = flax_tree_from_student_state_dict(params)
+    data = packb(tree)
 
     def write(tmp):
         with open(tmp, "wb") as f:

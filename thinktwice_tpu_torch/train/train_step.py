@@ -6,13 +6,18 @@ takes the same steps:
 
 - `clip_by_global_norm(grad_clip)`: when the global norm exceeds the limit,
   every gradient becomes (g / norm) * limit (no epsilon);
-- `adamw`: b1 0.9, b2 0.999, eps 1e-8 added after the square root, bias
-  correction, and weight decay on every parameter (no mask: biases, norm
-  scales and embeddings decay too), the update scaled by the learning rate;
+- `adamw`: b1 0.9, b2 0.999, eps (1e-8 unless given) added after the
+  square root, bias correction, and weight decay on every parameter (no
+  mask: biases, norm scales and embeddings decay too), the update scaled by
+  the learning rate;
 - `warmup_cosine_decay_schedule`: linear from lr * 1e-3 to lr over
   warmup_steps, then a cosine down to lr * 1e-2 at total_steps, read at the
   count of updates made before this one (the first step uses lr * 1e-3).
   The schedule is float32 arithmetic in optax's order.
+
+`Adam` is `optax.chain(clip_by_global_norm(grad_clip), adam(lr, eps))`, the
+expert trainers' optimizer: the same step without weight decay, at a
+constant learning rate.
 
 Parameters are the model's own tensors (`TrainState.params`, by name) and
 are updated in place. With grad_accum = K the batch splits into K chunks
@@ -56,10 +61,10 @@ class AdamW:
     step on tensors."""
 
     def __init__(self, lr: float, weight_decay: float, warmup_steps: int,
-                 total_steps: int, grad_clip: float):
+                 total_steps: int, grad_clip: float, eps: float = EPS):
         self.lr, self.weight_decay = lr, weight_decay
         self.warmup_steps, self.total_steps = warmup_steps, total_steps
-        self.grad_clip = grad_clip
+        self.grad_clip, self.eps = grad_clip, eps
 
     def schedule(self, count: int) -> float:
         """The learning rate of the update made after `count` others."""
@@ -100,13 +105,25 @@ class AdamW:
         count = state.count + 1
         bc1 = float(1 - _f32(B1) ** count)
         bc2 = float(1 - _f32(B2) ** count)
-        denom = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(nu, bc2)), EPS)
+        denom = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(nu, bc2)), self.eps)
         upd = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
-        torch._foreach_add_(upd, torch._foreach_mul(p, self.weight_decay))
+        if self.weight_decay:
+            torch._foreach_add_(upd, torch._foreach_mul(p, self.weight_decay))
         lr = self.schedule(state.count)
         torch._foreach_mul_(upd, -lr)
         torch._foreach_add_(p, upd)
         return AdamState(count=count, mu=dict(zip(names, mu)), nu=dict(zip(names, nu))), lr
+
+
+class Adam(AdamW):
+    """optax.chain(clip_by_global_norm(grad_clip), adam(lr, eps=eps)): AdamW's
+    step with no weight decay and a constant learning rate."""
+
+    def __init__(self, lr: float, grad_clip: float, eps: float = EPS):
+        super().__init__(lr, 0.0, 0, 0, grad_clip, eps=eps)
+
+    def schedule(self, count: int) -> float:
+        return self.lr
 
 
 def global_norm(tensors) -> torch.Tensor:

@@ -11,7 +11,8 @@ tree of numpy arrays encodes to the bytes flax writes for it.
 
 `roach_state_dict_from_flax` maps the flax Roach param tree onto
 `agents.roach.RoachPolicy`'s state_dict: conv kernels HWIO -> OIHW, Dense
-kernels (in, out) -> Linear weights (out, in).
+kernels (in, out) -> Linear weights (out, in);
+`flax_tree_from_roach_state_dict` is its inverse.
 
 `student_state_dict_from_flax` maps the flax ThinkTwiceModel tree onto
 `models.encoder_decoder.ThinkTwiceModel`, whose submodules carry the flax
@@ -258,6 +259,43 @@ def roach_state_dict_from_flax(tree: dict, n_states: int = 1,
         f"{m}.{k}": torch.from_numpy(np.array(v, np.float32))
         for m, d in mods.items() for k, v in d.items()
     }
+
+
+def flax_tree_from_roach_state_dict(state_dict: dict) -> dict:
+    """RoachPolicy state_dict tensors -> the flax param tree {"params": ...}
+    of numpy float32 arrays (inverse of roach_state_dict_from_flax)."""
+
+    def layers(prefix):
+        return sorted({int(k[len(prefix):].split(".")[0]) for k in state_dict
+                       if k.startswith(prefix)})
+
+    def arr(key):
+        return state_dict[key].detach().cpu().to(torch.float32).numpy()
+
+    def conv(m):
+        return {"kernel": np.ascontiguousarray(np.transpose(arr(m + ".weight"), (2, 3, 1, 0))),
+                "bias": np.ascontiguousarray(arr(m + ".bias"))}
+
+    def dense(m):
+        return {"kernel": np.ascontiguousarray(arr(m + ".weight").T),
+                "bias": np.ascontiguousarray(arr(m + ".bias"))}
+
+    fe = {f"Conv_{i}": conv(f"features_extractor.convs.{i}")
+          for i in layers("features_extractor.convs.")}
+    states = layers("features_extractor.states.")
+    for i in states:
+        fe[f"Dense_{i}"] = dense(f"features_extractor.states.{i}")
+    fe[f"Dense_{len(states)}"] = dense("features_extractor.linear0")
+    fe[f"Dense_{len(states) + 1}"] = dense("features_extractor.linear1")
+    top = {"features_extractor": fe}
+    policy = layers("policy_head.")
+    for i in policy:
+        top[f"Dense_{i}"] = dense(f"policy_head.{i}")
+    for i in layers("value_head."):
+        top[f"Dense_{len(policy) + i}"] = dense(f"value_head.{i}")
+    for name in ("dist_alpha", "dist_beta", "value_out"):
+        top[name] = dense(name)
+    return {"params": top}
 
 
 def load_roach_policy(path: str, cfg, device="cuda"):
