@@ -23,7 +23,15 @@ against its CPU run on small inputs, and drives both rollouts:
   the card against the CPU, the breakdown of a macro step; then BC at its
   recipe (24 worlds x 256 ticks, 96 vehicles, perturbation 0.05) for one
   iteration and the held-out probe (8 worlds x 768 ticks), and a small BC
-  iterate on the card against the CPU.
+  iterate on the card against the CPU;
+- several processes (`parallel/launch.py`, one joined within a time limit
+  for each rank): the data-parallel step of student_rl6 on the collected
+  batch (its first example mirrored) over 2 gloo ranks sharing the card,
+  against the one-process step in float32 (at the end of the training
+  phases); the dry run of `thinktwice_tpu_torch.dryrun` with NCCL on one
+  rank at the frozen and the mid shapes; and the Roach rollout at the
+  bench's shape split over 2 gloo ranks sharing the card (32 worlds each,
+  K1 on every rank) against the one-process run with the same draws.
 
     python3 chip_smoke.py                       # on a machine with one card
     python3 chip_smoke.py --device cpu --small  # CPU rehearsal, plain versions
@@ -75,6 +83,11 @@ GRAD_TOL, GRAD_COS = 1e-2, 0.99   # ... its gradient: of the norm; each leaf's c
 BC5_WEIGHTS = os.path.join(REPO, "runs", "roach_bc5", "params.msgpack")
 PPO_ENVS, PPO_STEPS, PPO_ITERS = 24, 128, 2   # the fine-tune recipe, two iterations
 BC_ROUTES = 32             # grid routes of the BC recipe; the tail 8 are the probe's
+DDP_RANKS = 2              # gloo ranks sharing the one card in [ddp step] and [worlds sharded]
+DDP_TIMEOUT = 600.0        # s a spawned group may take before its ranks are killed
+SHARDED_SEED = 45          # the generator of the sharded rollout's resets and draws
+SHARDED_CTRL_TOL = 1e-5    # the first tick's controls, a rank against the one-process run
+SHARDED_COMPLETION_TOL = 1e-4  # the sharded summary's mean completion against the one-process
 
 
 def log(msg: str) -> None:
@@ -867,23 +880,6 @@ def to_device(batch: dict, device) -> dict:
             for k, v in batch.items()}
 
 
-@contextlib.contextmanager
-def float32_compute():
-    """The student's bfloat16 compute switched to float32 while the block
-    runs (its modules read the dtype when built and when run)."""
-    from thinktwice_tpu_torch.models import encoder_decoder, lidarnet, lss
-
-    mods = (encoder_decoder, lidarnet, lss)
-    saved = [m.BF16 for m in mods]
-    for m in mods:
-        m.BF16 = torch.float32
-    try:
-        yield
-    finally:
-        for m, v in zip(mods, saved):
-            m.BF16 = v
-
-
 def train_step_card_and_cpu(cfg, part, device):
     """One train step of a small two-sweep student from the same weights
     (flax-style init from seed 0, its zero leaves, the biases, then given
@@ -954,6 +950,8 @@ def train_card_vs_cpu(cfg, batch, device):
     on). In bfloat16, as the model runs, the
     differences are printed: two bfloat16 runs whose convolutions round in
     other orders (the JAX and the port's agree no closer on the CPU)."""
+    from thinktwice_tpu_torch.train.crosscheck import float32_compute
+
     small = train_small_config(cfg)
     part = slice_batch(batch, 2)
     res = {}
@@ -1183,8 +1181,82 @@ def train_phases(args, on_card: bool, device, card: str, n_vehicles: int) -> dic
     train_checkpoint(cfg, model, batch0, device, on_card)
     if on_card:
         train_breakdown(cfg, model, state, batch0)
+    del state
+    ddp_step(cfg, model, batch0, device, card, on_card)
     return rows
 
+
+def ddp_step(cfg, model, batch, device, card, on_card):
+    """[ddp step]: one data-parallel train step of the trained student on
+    the collected batch (on the CPU rehearsal its first 2 examples; the
+    first example mirrored, so distil_weight is 0 on rank 0 only) over
+    DDP_RANKS gloo ranks sharing the card, against the
+    one-process step on the same global batch and weights, both in float32
+    compute at lr 1e-3 from the first step (train_small_config's reason).
+    crosscheck.step_agreement holds it with the tolerances of [train card
+    vs cpu]: the loss terms and grad_norm to TRAIN_TOL of their value, the
+    reduced gradient to GRAD_TOL of the one-process gradient's norm with
+    every leaf at a cosine of at least GRAD_COS, and the ranks' parameters
+    to TRAIN_TOL of each leaf's change by the one-process optimizer applied
+    to the reduced gradient (the difference to the one-process step's own
+    change is printed); both ranks hold the same parameters. Per rank: a
+    second step's ms, its all-reduce's ms, peak memory."""
+    import functools
+    import tempfile
+
+    from thinktwice_tpu_torch.config import TrainConfig
+    from thinktwice_tpu_torch.parallel import ranks
+    from thinktwice_tpu_torch.parallel.launch import spawn
+    from thinktwice_tpu_torch.train import loop
+    from thinktwice_tpu_torch.train.augment import maybe_mirror
+    from thinktwice_tpu_torch.train.crosscheck import step_agreement
+
+    step_cfg = cfg.replace(train=TrainConfig(lr=1e-3, warmup_steps=0))
+    if not on_card:
+        batch = slice_batch(batch, DDP_RANKS)
+    B = batch["imgs"].shape[0]
+    batch = maybe_mirror(batch, do=torch.arange(B, device=batch["imgs"].device) == 0)
+    depth = 50 if on_card else 10
+    make_model = functools.partial(loop.make_model, step_cfg, depth, model.n_sweeps)
+    make_loss = functools.partial(loop.model_loss_fn, step_cfg)
+    start = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    on = "cuda:0" if on_card else "cpu"
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ddp_step.pt")
+        torch.save({"state_dict": start, "batch": to_device(batch, "cpu")}, path)
+        if on_card:
+            torch.cuda.empty_cache()
+        one = ranks.train_step_rank(None, step_cfg, make_model, make_loss, path, float32=True,
+                                    timed=1, device=device)
+        if on_card:
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out = spawn(ranks.train_step_rank, DDP_RANKS,
+                    args=(step_cfg, make_model, make_loss, path, True, 1),
+                    devices=[on] * DDP_RANKS, backend="gloo", timeout=DDP_TIMEOUT)
+        wall = time.perf_counter() - t0
+    a = step_agreement(out, one, start, step_cfg, TRAIN_TOL, GRAD_TOL, GRAD_COS, TRAIN_TOL)
+    m, ref = out[0]["metrics"], one["metrics"]
+    terms, cos, update = a["terms"], a["cos"], a["update"]
+    t, c, u = (max(terms, key=terms.get), min(cos, key=cos.get), max(update, key=update.get))
+    per_rank = "; ".join(
+        f"rank {r}: {o['ms']:.1f} ms a step, all-reduce {o['reduce_ms']:.1f} ms, first step "
+        f"{o['first_s']:.2f} s, peak {o['peak_gib'] or float('nan'):.2f} GiB"
+        for r, o in enumerate(out))
+    log(f"[ddp step] student {'student_rl6' if on_card else 'tiny'} in float32, global batch "
+        f"{B} ({B // DDP_RANKS} a rank, example 0 mirrored: distil_weight 0 on rank 0 only), "
+        f"{DDP_RANKS} gloo ranks on {on} against one process: loss {m['loss']:.6f} vs "
+        f"{ref['loss']:.6f}; {len(terms)} values within {terms[t]:.2e} of their value ({t}); "
+        f"the gradient within {a['grad']:.2e} of its norm, its {len(cos)} leaves at cosine >= "
+        f"{cos[c]:.6f} ({c}); the update within {update[u]:.2e} of each leaf's change by the "
+        f"one-process optimizer on the reduced gradient ({u}); against the one-process step's own "
+        f"change: {a['direct']:.2e} of a leaf's largest, {a['direct_all']:.2e} of the whole "
+        f"change's norm; ranks equal {a['same']}; {per_rank}; one process {one['ms']:.1f} ms a "
+        f"step, peak {one['peak_gib'] or float('nan'):.2f} GiB; {wall:.1f} s wall with the "
+        f"ranks' start on {card}")
+    if a["bad"]:
+        raise AssertionError("the data-parallel step disagrees with the one-process step: "
+                             + "; ".join(a["bad"][:8]))
 
 
 # --------------------------------------------------------------------------
@@ -1459,6 +1531,98 @@ def expert_train_phases(args, on_card: bool, device, card: str) -> dict:
     return rows
 
 
+# --------------------------------------------------------------------------
+# several processes: the data-parallel dry run, the sharded Roach rollout
+
+
+def ddp_dryrun(on_card: bool, card: str) -> None:
+    """[ddp dryrun]: dryrun_multigpu(1) with NCCL on the card at the frozen
+    and the mid shapes (on the CPU rehearsal: 2 gloo ranks, frozen)."""
+    from thinktwice_tpu_torch.dryrun import _DRYRUN_FROZEN, _DRYRUN_MID, dryrun_multigpu
+
+    runs = (("frozen", _DRYRUN_FROZEN), ("mid", _DRYRUN_MID)) if on_card else (
+        ("frozen", _DRYRUN_FROZEN),)
+    for name, fz in runs:
+        t0 = time.perf_counter()
+        if on_card:
+            res = dryrun_multigpu(1, fz, timeout=DDP_TIMEOUT)
+        else:
+            res = dryrun_multigpu(DDP_RANKS, fz, device="cpu", timeout=DDP_TIMEOUT)
+        wall = time.perf_counter() - t0
+        r0 = res[0]
+        log(f"[ddp dryrun] {name} shapes (ResNet-{fz['backbone']}, {fz['n_cams']} cameras of "
+            f"{fz['img_height']} x {fz['img_width']}, {fz['refine_num']} refine layers, one "
+            f"example a rank): {len(res)} rank(s), {'nccl' if on_card else 'gloo'}: loss "
+            f"{r0['loss']:.4f}; rank 0 built and replicated in {r0['init_s']:.2f} s, its "
+            f"first step {r0['step_s']:.2f} s, peak {r0['peak_gib'] or float('nan'):.2f} GiB; "
+            f"{wall:.1f} s wall with the process's start on {card}")
+        if not all(np.isfinite(r["loss"]) for r in res):
+            raise AssertionError(f"the {name} dry run's loss is not finite")
+
+
+def worlds_sharded(cfg, device, card: str, on_card: bool, n_worlds: int, n_vehicles: int,
+                   n_ticks: int) -> list[int]:
+    """[worlds sharded]: the Roach rollout of n_worlds worlds for n_ticks
+    ticks split over DDP_RANKS gloo ranks sharing the card, against the
+    one-process run of all of them with the same resets and global draws:
+    each rank's K1 masks of the first tick equal the one-process rows bit
+    for bit, its first controls agree to SHARDED_CTRL_TOL, and its last
+    frame's K1 masks equal the plain version's (0 pixels off, some set);
+    K1 runs n_ticks / 2 times on each rank and K2 none. The summary over
+    the ranks holds the one-process summary's counts, and its mean
+    completion to SHARDED_COMPLETION_TOL: on the card the policy CNN's
+    cuDNN algorithms may change with the batch, so the trajectories are
+    held through what the evaluation reads, not bit for bit. -> each
+    rank's K1 launches and its K2 launches."""
+    from thinktwice_tpu_torch.parallel import ranks
+    from thinktwice_tpu_torch.parallel.launch import spawn
+
+    args = (cfg, WEIGHTS, n_worlds, n_vehicles, n_ticks, SHARDED_SEED)
+    one = ranks.roach_rollout_rank(None, *args, device=device)
+    on = "cuda:0" if on_card else "cpu"
+    t0 = time.perf_counter()
+    out = spawn(ranks.roach_rollout_rank, DDP_RANKS, args=args, devices=[on] * DDP_RANKS,
+                backend="gloo", timeout=DDP_TIMEOUT)
+    wall = time.perf_counter() - t0
+    n_local = n_worlds // DDP_RANKS
+    bad = []
+    for r, o in enumerate(out):
+        rows = slice(r * n_local, (r + 1) * n_local)
+        same = torch.equal(o["bits0"], one["bits0"][rows])
+        ctrl = float((o["ctrl0"] - one["ctrl0"][rows]).abs().max())
+        expected = n_ticks // 2 if on_card else 0
+        log(f"[worlds sharded] rank {r}: worlds {rows.start}-{rows.stop - 1}, first tick's K1 "
+            f"masks equal to the one-process rows {same} ({int((o['bits0'] != 0).sum())} of "
+            f"{o['bits0'].numel()} pixels set), first controls within {ctrl:.2e}; last frame "
+            f"{o['last_off']} of {o['pixels']} pixels off the plain version "
+            f"({o['last_nonzero']} set); {n_ticks} ticks in {o['seconds']:.3f} s "
+            f"({n_local * n_ticks / o['seconds']:.1f} env-steps/s), K1 launches "
+            f"{o['launches']} (expected {expected}), K2 launches {o['k2_launches']} "
+            f"(expected 0), peak "
+            f"{o['peak_gib'] or float('nan'):.2f} GiB; its worlds {o['local']}")
+        bad += ([f"rank {r} first masks"] if not same or not int((o["bits0"] != 0).sum()) else [])
+        bad += [f"rank {r} controls {ctrl:.2e}"] if ctrl > SHARDED_CTRL_TOL else []
+        bad += ([f"rank {r} last frame"] if o["last_off"] or not o["last_nonzero"] else [])
+        bad += [f"rank {r} K1 {o['launches']}"] if o["launches"] != expected else []
+        bad += [f"rank {r} K2 {o['k2_launches']}"] if o["k2_launches"] else []
+    log(f"[worlds sharded] {n_worlds} worlds x {n_ticks} ticks, {n_vehicles} vehicles: summary "
+        f"over the {DDP_RANKS} ranks {out[0]['summary']}; one process {one['summary']} in "
+        f"{one['seconds']:.3f} s ({n_worlds * n_ticks / one['seconds']:.1f} env-steps/s, K1 "
+        f"launches {one['launches']}); {wall:.1f} s wall with the ranks' start on {card}")
+    summary, ref = out[0]["summary"], one["summary"]
+    counts = [k for k in ref if k != "mean_completion" and summary[k] != ref[k]]
+    completion = abs(summary["mean_completion"] - ref["mean_completion"])
+    log(f"[worlds sharded] the sharded summary against the one-process: counts differ in "
+        f"{counts or 'none'}, mean completion within {completion:.2e} (tolerance "
+        f"{SHARDED_COMPLETION_TOL:g})")
+    bad += [f"summary {k} {summary[k]} vs {ref[k]}" for k in counts]
+    if not completion <= SHARDED_COMPLETION_TOL:
+        bad.append(f"mean completion {summary['mean_completion']} vs {ref['mean_completion']}")
+    if bad:
+        raise AssertionError("the sharded rollout disagrees: " + "; ".join(bad))
+    return [o["launches"] for o in out], [o["k2_launches"] for o in out]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -1615,15 +1779,23 @@ def main() -> int:
     expert = expert_train_phases(args, on_card, device, card)
     if K2.launches != k2_before:
         raise AssertionError("the expert's training launched K2")
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # ---- phase 10: several processes: the dry run, the sharded rollout ------
+    ddp_dryrun(on_card, card)
+    sharded_k1, sharded_k2 = worlds_sharded(cfg, device, card, on_card, n_worlds, n_vehicles,
+                                            n_ticks)
 
     if on_card:
         k1_row["train_launches"], k2_row["train_launches"] = train["k1_train"], train["k2_train"]
         k1_row["ppo_launches"], k1_row["bc_launches"] = expert["ppo"], expert["bc"]
+        k1_row["sharded_launches"], k2_row["sharded_launches"] = sharded_k1, sharded_k2
         k2_row["ppo_launches"] = k2_row["bc_launches"] = 0
         k1_row["max_abs_err"] = max(k1_row["max_abs_err"], train["k1_err"], expert["err"])
         k2_row["max_abs_err"] = max(k2_row["max_abs_err"], train["k2_err"])
         keys = ("name", "route", "source", "replaces", "launches", "train_launches",
-                "ppo_launches", "bc_launches",
+                "ppo_launches", "bc_launches", "sharded_launches",
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         log(json.dumps({"kernels": [{k: row[k] for k in keys} for row in (k1_row, k2_row)]}))
         log(card_line(device))

@@ -2,8 +2,9 @@
 the birdview rasterizer, K2 the ray-vs-box intersector), also on a frame
 collected for training, the card's world step against the CPU's, one
 train step of a tiny student, and one small PPO and BC iterate of the
-Roach expert (K1 on their rollouts), on the card against the CPU. These
-tests need an NVIDIA card and skip
+Roach expert (K1 on their rollouts), on the card against the CPU, and a
+data-parallel step over a 1-rank NCCL and a 2-rank gloo group on the card
+against the one-process step. These tests need an NVIDIA card and skip
 without one; they import no JAX, so on a machine with a card and no JAX
 they run with
 
@@ -465,6 +466,50 @@ def test_train_step_on_card_matches_cpu(card, monkeypatch):
         change = float((ref[k] - start[k]).abs().max())
         assert change > 0, k
         assert float((p_d[k] - ref[k]).abs().max()) <= 1e-3 * change, k
+
+
+@pytest.mark.cuda
+def test_data_parallel_step_on_card_matches_one_process(card, tmp_path):
+    """The tiny two-sweep student's step on 2 collected examples (the first
+    mirrored: distil_weight 0 on rank 0 only) in float32 compute, with a
+    1-rank NCCL group and with a 2-rank gloo group sharing cuda:0, against
+    the one-process step on the card: the loss terms and grad_norm to 1e-3
+    of their value, the reduced gradient to 1e-2 of its norm with each leaf
+    at a cosine of at least 0.99, the ranks' parameters to 1e-3 of each
+    leaf's change by the optimizer on the reduced gradient (the tolerances
+    of the train step's card-vs-CPU test), and every rank the same
+    parameters: crosscheck.step_agreement."""
+    import functools
+
+    from thinktwice_tpu_torch.config import TrainConfig
+    from thinktwice_tpu_torch.parallel import ranks
+    from thinktwice_tpu_torch.parallel.launch import spawn
+    from thinktwice_tpu_torch.train import loop
+    from thinktwice_tpu_torch.train.augment import maybe_mirror
+    from thinktwice_tpu_torch.train.crosscheck import step_agreement
+
+    cfg = TINY.replace(train=TrainConfig(lr=1e-3, warmup_steps=0))
+    batch, _ = _tiny_collect(torch.device("cpu"), 7)               # 2 examples, 2 sweeps
+    batch = maybe_mirror(batch, do=torch.tensor([True, False]))
+    make_model = functools.partial(loop.make_model, cfg, 10, 2)
+    make_loss = functools.partial(loop.model_loss_fn, cfg)
+    init = make_model(device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    loop.init_model_params(cfg, init, gen)
+    start = {k: v + 1e-3 * torch.randn(v.shape, generator=gen) if not v.any() else v
+             for k, v in init.state_dict().items()}
+    path = str(tmp_path / "data.pt")
+    torch.save({"state_dict": start, "batch": batch}, path)
+    one = ranks.train_step_rank(None, cfg, make_model, make_loss, path, float32=True,
+                                device=card)
+    args = (cfg, make_model, make_loss, path, True)
+    for out in (spawn(ranks.train_step_rank, 1, args=args, devices=["cuda:0"],
+                      backend="nccl", timeout=300),
+                spawn(ranks.train_step_rank, 2, args=args, devices=["cuda:0", "cuda:0"],
+                      backend="gloo", timeout=300)):
+        agree = step_agreement(out, one, start, cfg, term_tol=1e-3, grad_tol=1e-2,
+                               grad_cos=0.99, update_tol=1e-3)
+        assert not agree["bad"], (len(out), agree["bad"])
 
 
 @pytest.mark.cuda

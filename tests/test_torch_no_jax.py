@@ -6,14 +6,17 @@ those modules (and the JAX package) cannot be imported, every module of
 thinktwice_tpu_torch imports; `python -m thinktwice_tpu_torch.cli evaluate
 --device cpu` scores two routes, `cli collect --device cpu` writes a batch
 of 5 frames and `python -m thinktwice_tpu_torch.bench --device cpu` prints
-its record at a tiny size; the expert trainers' scripts
+its record at a tiny size; `python -m thinktwice_tpu_torch.dryrun --nproc 2
+--device cpu` takes a step over two gloo ranks, whose processes find the
+same modules blocked; the expert trainers' scripts
 (`scripts.train_roach_ppo` with the fine-tune options, `scripts.train_bc`)
 take two iterations each with --device cpu and write their metrics and a
 params.msgpack the port reads back; and `chip_smoke.py --device cpu
 --small` runs to exit 0, the Roach rollout, the tiny student's closed
 loop, the three evaluator phases, the training phases (collection, 3
 steps of loop.train, the archive read back) and the expert's training
-phases (PPO, BC and its probe) included; nothing reaches
+phases (PPO, BC and its probe) and the multi-process phases (the dry run,
+the data-parallel step, the sharded rollout) included; nothing reaches
 torch.utils.cpp_extension.
 """
 
@@ -29,9 +32,15 @@ BLOCKED = ("jax", "flax", "optax", "orbax", "msgpack", "ninja", "triton",
 
 SCRIPT = f"""
 import sys
-for name in {BLOCKED!r}:
-    sys.modules[name] = None        # any import of it raises ImportError
-import importlib, pkgutil, runpy
+import importlib, multiprocessing, pkgutil, runpy
+assert all(sys.modules.get(name, 0) is None for name in {BLOCKED!r})
+for name in ("jax", "thinktwice_tpu.config"):     # blocked in a spawned process too
+    proc = multiprocessing.get_context("spawn").Process(
+        target=importlib.import_module, args=(name,))
+    proc.start()
+    proc.join(120)
+    assert proc.exitcode == 1, (name, proc.exitcode)
+print("blocked in a spawned process", flush=True)
 import thinktwice_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(
     thinktwice_tpu_torch.__path__, "thinktwice_tpu_torch.")]
@@ -67,6 +76,9 @@ with tempfile.TemporaryDirectory() as tmp:
         lines = open(f"{{tmp}}/{{name}}/metrics.jsonl").read().splitlines()
         sd = restore_pytree(f"{{tmp}}/{{name}}/params.msgpack", RoachPolicy.from_config(Config()))
         print("trained", name, len(lines), "lines", len(sd), "tensors", flush=True)
+sys.argv = ["dryrun", "--nproc", "2", "--device", "cpu"]
+from thinktwice_tpu_torch import dryrun
+assert dryrun.main() == 0
 sys.argv = ["bench", "--device", "cpu", "--worlds", "2", "--steps", "4"]
 runpy.run_module("thinktwice_tpu_torch.bench", run_name="__main__")
 sys.argv = ["chip_smoke.py", "--device", "cpu", "--small"]
@@ -85,12 +97,18 @@ def _port_sources():
     return paths
 
 
-def test_port_and_smoke_run_without_jax_stack():
-    env = dict(os.environ, PYTHONPATH=REPO)
+def test_port_and_smoke_run_without_jax_stack(tmp_path):
+    # every interpreter started with this environment, the processes the
+    # port spawns (the dry run's ranks, the smoke's) included, runs this
+    # sitecustomize first: an import of a blocked name raises ImportError
+    (tmp_path / "sitecustomize.py").write_text(
+        f"import sys\nfor name in {BLOCKED!r}:\n    sys.modules[name] = None\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(tmp_path), REPO]))
     proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
     lines = proc.stdout.strip().splitlines()
+    assert "blocked in a spawned process" in lines
     assert any(line.startswith("imported ") for line in lines)
     scores = json.loads(proc.stdout[proc.stdout.index("{"):proc.stdout.index("}") + 1])
     assert set(scores) == {"score_route", "score_penalty", "score_composed"}
@@ -101,7 +119,8 @@ def test_port_and_smoke_run_without_jax_stack():
     for tag in ("[eval card vs cpu] autopilot", "[eval card vs cpu] expert", "[eval expert]",
                 "[eval student]", "[train collect]", "[train step] 3:", "[train checkpoint]",
                 "[ppo iterate] 0:", "[ppo card vs cpu]", "[bc iterate]", "[bc probe]",
-                "[bc card vs cpu]"):
+                "[bc card vs cpu]", "[ddp step]", "[ddp dryrun] frozen",
+                "[worlds sharded] rank 1"):
         assert any(line.startswith(tag) for line in lines), tag
     assert any(line.startswith("[rollout] ") for line in lines)
     assert any(line.startswith("[student] 2 worlds x 4 ticks") for line in lines)
@@ -112,6 +131,7 @@ def test_port_and_smoke_run_without_jax_stack():
     assert [r["iter"] for r in ppo] == [0, 1] and "env_steps" in ppo[0]
     bc = [json.loads(line) for line in lines if line.startswith('{"action_mae"')]
     assert [r["iter"] for r in bc] == [0, 1] and "cl_completion" in bc[0]
+    assert sum(line.startswith("dryrun_multigpu OK: 2 ranks, loss=") for line in lines) == 2
     assert "cpp_extension loaded: False" in lines
     last = json.loads(lines[-2])
     assert last == {"ok": True, "device": {"platform": "cpu", "kind": "cpu", "count": 1}}

@@ -173,12 +173,21 @@ DEPTH_WEIGHT = 3.0
 SEG_WEIGHT = 1.0
 
 
-def decoder_loss(cfg: ModelConfig, outs: dict, batch: dict) -> dict:
+def _ranks_sum(x, group):
+    """x summed over the ranks of group (x itself without one). Used on the
+    denominators of the batch-normalized terms, which are data: no
+    gradient flows through them."""
+    return x if group is None else group.all_sum(x)
+
+
+def decoder_loss(cfg: ModelConfig, outs: dict, batch: dict, group=None) -> dict:
     """batch keys: gt_waypoints (B, T, 2), action_alpha/beta (B, 2),
     future_action_alpha/beta (B, T-1, 2), gt_speed (B,), gt_value (B,),
     roach_features (B, 256), roach_cnn (4 grids, bird frame, channels
     last), future_roach_cnn21 (B, T, 21, 21, 32), distil_weight (scalar or
-    (B,)), each optional where the JAX package's is."""
+    (B,)), each optional where the JAX package's is. With a group the
+    batch is this rank's rows, and each term is the rank's share of the
+    global batch's term (see total_loss)."""
     losses = {}
     pred_wp = outs["pred_wp"]                                  # (B, R+1, T, 2)
     losses["wp_loss"] = WP_LOSS_WEIGHT * torch.mean(
@@ -208,11 +217,15 @@ def decoder_loss(cfg: ModelConfig, outs: dict, batch: dict) -> dict:
     dw = torch.as_tensor(batch.get("distil_weight", 1.0), dtype=torch.float32,
                          device=pred_wp.device)
 
+    n_ranks = 1 if group is None else group.size
+    if dw.dim() > 0:
+        dw_sum = _ranks_sum(torch.sum(dw), group)
+
     def wmean(x):
         per_ex = torch.mean(x, dim=tuple(range(1, x.dim())))
         if dw.dim() == 0:
             return dw * torch.mean(per_ex)
-        return torch.sum(dw * per_ex) / torch.clamp_min(torch.sum(dw), 1e-6)
+        return torch.sum(dw * per_ex) * n_ranks / torch.clamp_min(dw_sum, 1e-6)
 
     if "roach_features" in batch:
         rf = batch["roach_features"]
@@ -263,10 +276,12 @@ def decoder_loss(cfg: ModelConfig, outs: dict, batch: dict) -> dict:
     return losses
 
 
-def depth_loss(cfg: ModelConfig, depth_logits, gt_depth):
+def depth_loss(cfg: ModelConfig, depth_logits, gt_depth, group=None):
     """Per-cell depth classification: the ground-truth depth (BN, H, W)
     meters, 0 invalid, min-pooled over each DOWNSAMPLE window, binned and
-    scored by cross-entropy on the valid cells. depth_logits (BN, h, w, D)."""
+    scored by cross-entropy on the valid cells. depth_logits (BN, h, w, D).
+    With a group: this rank's share of the mean over every rank's valid
+    cells."""
     BN, h, w, D = depth_logits.shape
     ds = DOWNSAMPLE
     g = gt_depth[:, :h * ds, :w * ds].reshape(BN, h, ds, w, ds)
@@ -277,7 +292,9 @@ def depth_loss(cfg: ModelConfig, depth_logits, gt_depth):
     bins = torch.clamp(((g - cfg.depth_min) / cfg.depth_step).to(torch.int64), 0, D - 1)
     logp = torch.log_softmax(depth_logits, dim=-1)
     nll = -torch.gather(logp, -1, bins[..., None])[..., 0]
-    return DEPTH_WEIGHT * torch.sum(nll * valid) / torch.clamp_min(valid.sum(), 1.0)
+    n_ranks = 1 if group is None else group.size
+    return (DEPTH_WEIGHT * torch.sum(nll * valid) * n_ranks
+            / torch.clamp_min(_ranks_sum(valid.sum(), group), 1.0))
 
 
 def seg_focal_loss(seg_logits, gt_seg, gamma: float = 2.0, alpha: float = 0.25):
@@ -288,11 +305,20 @@ def seg_focal_loss(seg_logits, gt_seg, gamma: float = 2.0, alpha: float = 0.25):
     return SEG_WEIGHT * torch.mean(-alpha * (1 - p) ** gamma * lp)
 
 
-def total_loss(cfg: ModelConfig, outs: dict, batch: dict):
-    """-> (loss, dict of every term, the metrics and `loss`)."""
-    losses = decoder_loss(cfg, outs, batch)
+def total_loss(cfg: ModelConfig, outs: dict, batch: dict, group=None):
+    """-> (loss, dict of every term, the metrics and `loss`).
+
+    group: a `parallel.launch.Group` when batch is this rank's shard of a
+    global batch (`train_step.shard_batch`). Two terms divide by a sum that
+    depends on the batch: the distillation terms' weighted mean (by
+    distil_weight, 0 on a mirrored example) and the depth NLL's mean over
+    the valid cells. Their denominators are summed over the ranks, so each
+    rank returns its share of the global term and the mean over the ranks
+    is the global batch's loss, as the JAX package computes it on its
+    mesh. Every other term is a plain mean over equal shards."""
+    losses = decoder_loss(cfg, outs, batch, group)
     if "gt_depth" in batch:
-        losses["depth_loss"] = depth_loss(cfg, outs["depth"], batch["gt_depth"])
+        losses["depth_loss"] = depth_loss(cfg, outs["depth"], batch["gt_depth"], group)
     if "gt_seg" in batch:
         losses["seg_loss"] = seg_focal_loss(outs["seg"], batch["gt_seg"])
     total = sum(v for k, v in losses.items() if not k.startswith("metric_"))

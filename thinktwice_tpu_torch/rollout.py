@@ -21,7 +21,7 @@ from thinktwice_tpu_torch.maps.procedural import make_grid_town
 from thinktwice_tpu_torch.maps.town import TownMap
 from thinktwice_tpu_torch.sim.reset import reset_world
 from thinktwice_tpu_torch.sim.state import Events, WorldState
-from thinktwice_tpu_torch.sim.step import StepDraws, step_world
+from thinktwice_tpu_torch.sim.step import StepDraws, WorldSlice, step_world
 
 POLICY_EVERY = 2   # 10 Hz policy at the 20 Hz tick
 
@@ -54,10 +54,13 @@ def grid_world(cfg: Config, n_worlds: int, n_vehicles: int, device="cuda",
 def rollout(cfg: Config, policy: RoachPolicy, town: TownMap, state: WorldState,
             n_ticks: int, policy_every: int = POLICY_EVERY,
             draws: list[StepDraws] | None = None,
-            generator: torch.Generator | None = None):
+            generator: torch.Generator | None = None,
+            worlds: WorldSlice | None = None):
     """Drive every world n_ticks ticks with the Roach expert. draws, when
     given, holds each tick's random draws (for parity tests); else they
-    come from `generator`. Returns (final state, list of per-tick Events,
+    come from `generator`. With worlds, state holds those rows of a larger
+    batch (one rank's share), and each tick's draws are made for the whole
+    batch and cut to them. Returns (final state, list of per-tick Events,
     list of the controls the expert computed)."""
     events: list[Events] = []
     controls = []
@@ -66,10 +69,10 @@ def rollout(cfg: Config, policy: RoachPolicy, town: TownMap, state: WorldState,
         if t % policy_every == 0:
             ctrl, _ = expert_control(cfg, policy, town, state)
             controls.append(ctrl)
-        state, ev = step_world(
-            cfg, town, state, ctrl,
-            draws=None if draws is None else draws[t], generator=generator,
-        )
+        tick = None if draws is None else draws[t]
+        if worlds is not None:
+            tick = worlds.step_draws(town, state, tick, generator)
+        state, ev = step_world(cfg, town, state, ctrl, draws=tick, generator=generator)
         events.append(ev)
     return state, events, controls
 

@@ -44,14 +44,40 @@ class StepDraws:
 
 
 def sample_step_draws(town: TownMap, state: WorldState,
-                      generator: torch.Generator | None = None) -> StepDraws:
+                      generator: torch.Generator | None = None,
+                      n_worlds: int | None = None) -> StepDraws:
+    """One tick's draws for the state's worlds (for n_worlds, when given)."""
     B, V = state.traffic.active.shape
+    B = B if n_worlds is None else n_worlds
     dev = state.tick.device
     return StepDraws(
         steer_normal=torch.randn((B,), generator=generator, device=dev),
         recycle_cand=torch.randint(0, town.spawn.shape[0], (B, V),
                                    generator=generator, device=dev),
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class WorldSlice:
+    """Rows [start, stop) of a batch of `total` worlds: the worlds one rank
+    of a process group steps. A tick's draws are made for all `total`
+    worlds, from the generator every rank seeds alike or as given, and cut
+    to these rows, so a run sharded over ranks draws what the one-process
+    run of all the worlds draws (the JAX package keeps a key per world,
+    and its sharded run equals its unsharded one)."""
+
+    start: int
+    stop: int
+    total: int
+
+    def step_draws(self, town: TownMap, state: WorldState, draws: StepDraws | None = None,
+                   generator: torch.Generator | None = None) -> StepDraws:
+        """These rows of a tick's draws of all the worlds (drawn from
+        generator when draws is None)."""
+        if draws is None:
+            draws = sample_step_draws(town, state, generator, n_worlds=self.total)
+        return StepDraws(steer_normal=draws.steer_normal[self.start:self.stop],
+                         recycle_cand=draws.recycle_cand[self.start:self.stop])
 
 
 def _push_history(hist: HistoryState, traffic: TrafficState,

@@ -70,13 +70,14 @@ def model_forward(cfg: Config, model: ThinkTwiceModel):
     return forward
 
 
-def model_loss_fn(cfg: Config, model: ThinkTwiceModel):
+def model_loss_fn(cfg: Config, model: ThinkTwiceModel, group=None):
     """-> loss_fn(batch) -> (loss, metrics): the model's forward with the
-    teacher pass and total_loss."""
+    teacher pass and total_loss (with a process group: this rank's share
+    of the global batch's loss)."""
     forward = model_forward(cfg, model)
 
     def loss_fn(batch):
-        return total_loss(cfg.model, forward(batch), batch)
+        return total_loss(cfg.model, forward(batch), batch, group)
 
     return loss_fn
 

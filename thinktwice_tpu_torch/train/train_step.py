@@ -1,5 +1,5 @@
-"""The training step: loss, gradients, clip, AdamW (counterpart of
-`thinktwice_tpu/train/train_step.py`, without its device-mesh helpers).
+"""The training step: loss, gradients, clip, AdamW, data-parallel over a
+process group (counterpart of `thinktwice_tpu/train/train_step.py`).
 
 The optimizer is optax's chain, written as tensor arithmetic so that it
 takes the same steps:
@@ -23,17 +23,32 @@ Parameters are the model's own tensors (`TrainState.params`, by name) and
 are updated in place. With grad_accum = K the batch splits into K chunks
 along its leading axis, and the gradients, the loss and the metrics are
 averaged over them; `grad_norm` in the metrics is the norm before the clip.
+
+Data parallelism, the counterpart of the JAX package's `data` mesh: a
+`parallel.launch.Group` of one process per card (`data_group`), each rank
+holding its rows of the global batch (`shard_batch`) and the same state
+(`replicate`). `make_train_step(..., group=group)` all-reduces the
+gradients (one flat buffer), the loss and the metrics as their mean over
+the ranks before `grad_norm` and the clip, so every rank clips and steps
+as the JAX step does on the global gradient. The all-reduce is explicit,
+not `DistributedDataParallel`'s: the step takes its gradients with
+`torch.autograd.grad` through rematerialized blocks, which DDP's hooks on
+`.backward()` do not see. The loss must be the rank's share of the global
+loss (`total_loss(..., group=group)`), whose mean over the ranks is the
+loss of the global batch.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable
 
 import torch
 
 from thinktwice_tpu_torch.config import Config
+from thinktwice_tpu_torch.parallel.launch import Group, flat_collective, init_group
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 
@@ -140,6 +155,62 @@ def create_train_state(cfg: Config, params: dict[str, torch.Tensor]) -> TrainSta
     return TrainState(step=0, params=params, opt_state=make_optimizer(cfg).init(params))
 
 
+# the counterpart of data_mesh: the process group whose ranks share a batch
+data_group = init_group
+
+
+def shard_batch(group: Group, batch: dict, grad_accum: int = 1) -> dict:
+    """This rank's rows of a global batch, on its device. The one-process
+    step (and the JAX package's on its mesh) splits the global batch into
+    grad_accum = K microbatches of consecutive rows, each normalized on its
+    own; so rank r of n holds, for k = 0 .. K-1 in turn, the r-th n-th of
+    microbatch k: rows [kL/K + rL/(nK), kL/K + (r+1)L/(nK)) of a leaf of L
+    rows (a per-camera leaf's rows lie example by example, so it is cut
+    alike). split_batch then gives each rank its part of every microbatch.
+    Scalars are shared."""
+    n, K = group.size, grad_accum
+
+    def one(x):
+        if isinstance(x, tuple):
+            return tuple(one(y) for y in x)
+        if not torch.is_tensor(x) or x.dim() == 0:
+            return x.to(group.device) if torch.is_tensor(x) else x
+        L = x.shape[0]
+        if L % (n * K):
+            raise ValueError(f"a batch leaf of {L} rows does not split into {n} ranks x "
+                             f"{K} microbatches")
+        rows = x.reshape(K, n, L // (n * K), *x.shape[1:])[:, group.rank]
+        return rows.reshape(L // n, *x.shape[1:]).to(group.device)
+
+    return {k: one(v) for k, v in batch.items()}
+
+
+@torch.no_grad()
+def replicate(group: Group, state: TrainState) -> TrainState:
+    """Every rank's state made rank 0's, in place: the parameters, the
+    moments, the update count and the step."""
+    tensors = [*state.params.values(), *state.opt_state.mu.values(),
+               *state.opt_state.nu.values()]
+    for t, v in zip(tensors, flat_collective(tensors, group.broadcast_)):
+        t.copy_(v)
+    counts = group.broadcast_(torch.tensor([state.step, state.opt_state.count],
+                                           device=group.device))
+    step, count = (int(c) for c in counts)
+    return TrainState(step=step, params=state.params,
+                      opt_state=dataclasses.replace(state.opt_state, count=count))
+
+
+def all_mean(group: Group, values: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """The mean over the ranks of each value, by one all-reduce of a flat
+    buffer."""
+    def mean_(flat):
+        group.all_sum_(flat).div_(group.size)
+
+    dtype = functools.reduce(torch.promote_types, (v.dtype for v in values.values()))
+    means = flat_collective([v.to(dtype) for v in values.values()], mean_)
+    return {k: m.to(v.dtype) for (k, v), m in zip(values.items(), means)}
+
+
 def split_batch(batch: dict, k: int) -> list[dict]:
     """The batch's k chunks along the leading axis of every tensor (tuples
     of tensors split leaf-wise; scalars and None are shared)."""
@@ -156,7 +227,8 @@ def split_batch(batch: dict, k: int) -> list[dict]:
 
 
 def make_train_step(cfg: Config, loss_fn: Callable[[dict], tuple[torch.Tensor, dict]],
-                    probe: Callable[[str, object], None] | None = None):
+                    probe: Callable[[str, object], None] | None = None,
+                    group: Group | None = None):
     """loss_fn(batch) -> (scalar loss, metrics), computed by the model that
     owns the state's parameters. -> step(state, batch) -> (state, metrics
     as float32 scalars, grad_norm included).
@@ -165,7 +237,12 @@ def make_train_step(cfg: Config, loss_fn: Callable[[dict], tuple[torch.Tensor, d
     been issued: ("forward", loss) after each chunk's loss, ("backward",
     gradients by name) once they are averaged, before the clip, and
     ("optimizer", lr) after the update. It lets a caller time the stages
-    of the step that `loop.train` runs and read its gradients."""
+    of the step that `loop.train` runs and read its gradients.
+
+    With a group, batch is this rank's shard (shard_batch) and loss_fn
+    gives the rank's share of the global loss; "backward" then sees the
+    rank's own gradients, and ("reduce", gradients by name) follows once
+    they, the loss and the metrics are averaged over the ranks."""
     tx = make_optimizer(cfg)
     K = cfg.train.grad_accum
     probe = probe or (lambda stage, value: None)
@@ -195,6 +272,9 @@ def make_train_step(cfg: Config, loss_fn: Callable[[dict], tuple[torch.Tensor, d
             metrics = {k: v / K for k, v in msum.items()}
             grads = {k: v / K for k, v in gsum.items()}
         probe("backward", grads)
+        if group is not None:
+            grads, metrics = all_mean(group, grads), all_mean(group, metrics)
+            probe("reduce", grads)
         metrics["grad_norm"] = global_norm(list(grads.values()))
         opt_state, lr = tx.step(state.params, grads, state.opt_state)
         probe("optimizer", lr)
