@@ -31,7 +31,18 @@ against its CPU run on small inputs, and drives both rollouts:
   phases); the dry run of `thinktwice_tpu_torch.dryrun` with NCCL on one
   rank at the frozen and the mid shapes; and the Roach rollout at the
   bench's shape split over 2 gloo ranks sharing the card (32 worlds each,
-  K1 on every rank) against the one-process run with the same draws.
+  K1 on every rank) against the one-process run with the same draws;
+- an imported town through the bench's entry point (`bench.town05_world`):
+  the 6 x 6-block grid town's rasters as the town's file, lane-graph
+  routes and the town's lane loops as route XMLs, planned by the
+  RasterPlanner, compiled at the bench's Town05 capacities and cached, the
+  cache file read back; the Roach rollout
+  at the bench's shape on it with Scenario3 and Scenario7 armed (K1 on
+  ~26,000 table rows a world, above the kernel's 4096-row chunk), K1
+  against its plain version and timed there, a small evaluation on the
+  card against the CPU; then one world's collection on it exported in the
+  reference's dataset layout and read back, without PIL or cv2 (K2
+  against its plain version on its last frame).
 
     python3 chip_smoke.py                       # on a machine with one card
     python3 chip_smoke.py --device cpu --small  # CPU rehearsal, plain versions
@@ -88,6 +99,12 @@ DDP_TIMEOUT = 600.0        # s a spawned group may take before its ranks are kil
 SHARDED_SEED = 45          # the generator of the sharded rollout's resets and draws
 SHARDED_CTRL_TOL = 1e-5    # the first tick's controls, a rank against the one-process run
 SHARDED_COMPLETION_TOL = 1e-4  # the sharded summary's mean completion against the one-process
+TOWN_BLOCKS = 6            # [town import]: 6 x 6 blocks of 100 m, 3,200 px a side at 5 px/m
+TOWN_ROUTES, TOWN_MAX_TRIES = 80, 1000   # lane-graph routes of 100-370 m, and the tries for them
+KEYPOINT_M = 25.0          # a route keypoint every ~25 m, densified by the RasterPlanner
+TOWN_SEED = 46             # the generator of the imported town's resets and draws
+TOWN_CPU_WORLDS, TOWN_CPU_TICKS = 2, 20   # [town card vs cpu]
+EXPORT_FRAMES = 7          # [reference export]: one world's frames, 7 - 4 = 3 dataset items
 
 
 def log(msg: str) -> None:
@@ -1623,6 +1640,368 @@ def worlds_sharded(cfg, device, card: str, on_card: bool, n_worlds: int, n_vehic
     return [o["launches"] for o in out], [o["k2_launches"] for o in out]
 
 
+# --------------------------------------------------------------------------
+# imported towns and the reference-format dataset
+
+
+def grid_lane_loops(town) -> list:
+    """The grid town's lane loops, each followed along lane_next from its
+    first waypoint -> [(K, 2) float32]: the bank of polylines that covers
+    every road of the town."""
+    pts = town.lane_pts.cpu().numpy()
+    nxt = town.lane_next.cpu().numpy()
+    seen = ~town.lane_valid.cpu().numpy()
+    loops = []
+    for i in range(len(pts)):
+        path = []
+        while not seen[i]:
+            seen[i] = True
+            path.append(i)
+            i = int(nxt[i])
+        if len(path) > 1:
+            loops.append(pts[path])
+    return loops
+
+
+def keypoint_spec(route, name: str):
+    """A lane-graph route or lane loop (K, >= 2) -> the RouteSpec of a point
+    every ~KEYPOINT_M metres and its last, posed along the path: the sparse
+    keypoints of a route XML."""
+    from thinktwice_tpu_torch.harness.route_parser import RouteSpec
+
+    step = np.diff(route[:, :2], axis=0)
+    cum = np.r_[0.0, np.cumsum(np.linalg.norm(step, axis=1))]
+    yaw = np.arctan2(*np.r_[step, step[-1:]][:, ::-1].T)
+    idx = np.unique(np.r_[np.searchsorted(cum, np.arange(0.0, cum[-1], KEYPOINT_M)),
+                          len(route) - 1])
+    return RouteSpec(name, "Grid6", route[idx, :2].astype(np.float64),
+                     np.rad2deg(yaw[idx]).astype(np.float64))
+
+
+def write_routes_xml(path: str, specs) -> None:
+    """RouteSpecs -> a route XML in the leaderboard's format."""
+    lines = ["<routes>"]
+    for s in specs:
+        lines.append(f'  <route id="{s.route_id}" town="{s.town}">')
+        lines += [f'    <waypoint x="{float(x)!r}" y="{float(y)!r}" z="0.0" yaw="{float(w)!r}"/>'
+                  for (x, y), w in zip(s.keypoints, s.keypoint_yaws)]
+        lines.append("  </route>")
+    with open(path, "w") as f:
+        f.write("\n".join(lines + ["</routes>"]) + "\n")
+
+
+def read_town_npz(path: str) -> dict:
+    """The rasters of a town kept as an .npz (the keys of
+    maps.compile_h5.read_town_h5): the smoke's town H5, since the card
+    machine has no h5py."""
+    with np.load(path) as z:
+        out = {k: z[k] for k in z.files}
+    out["pixels_per_meter"] = float(out["pixels_per_meter"])
+    return out
+
+
+def imported_town(cfg, device, small: bool, n_worlds: int):
+    """[town import]'s town, through the bench's imported-town entry point:
+    the grid town of TOWN_BLOCKS x TOWN_BLOCKS blocks, its rasters and a
+    stopline layer drawn from its stop lines written as the town's file (an
+    .npz in place of the H5, read by read_town_npz); up to TOWN_ROUTES
+    lane-graph routes of 100-370 m, a keypoint every ~KEYPOINT_M metres,
+    written as a route XML; the town's lane loops, keypointed the same way,
+    as the bank XML. bench.town05_world plans and filters the routes
+    through the RasterPlanner, compiles the town at the bench's Town05
+    capacities, strict, and writes the town cache; a second town05_cached
+    call reads the cache file back. -> (town on `device`, routes (n_worlds,
+    R, 3) numpy, scenarios, the seconds of each step, the compile's counts)."""
+    import tempfile
+
+    from thinktwice_tpu_torch.bench import TOWN05_CAPS, town05_world
+    from thinktwice_tpu_torch.maps import cache
+    from thinktwice_tpu_torch.maps.procedural import grid_town_rasters, make_grid_town
+    from thinktwice_tpu_torch.maps.router import generate_random_routes, raster_planner
+
+    blocks, n_routes, tries = (2, 4, 200) if small else (TOWN_BLOCKS, TOWN_ROUTES, TOWN_MAX_TRIES)
+    caps = (dict(max_lane_pts=4096, max_road_segs=1024, max_lane_segs=1024, strict=True)
+            if small else TOWN05_CAPS)
+    caps = dict(caps, max_lights=cfg.sim.max_lights, max_stops=cfg.sim.max_stop_signs)
+    grid = make_grid_town(n_blocks=blocks, block=100.0, max_lane_pts=16384, max_lights=256,
+                          max_spawn=2048, device="cpu")
+    secs = {}
+    cache_dir = cache.CACHE_DIR
+    with tempfile.TemporaryDirectory() as tmp:
+        town_path = os.path.join(tmp, "town.npz")
+        routes_xml, bank_xml = os.path.join(tmp, "routes.xml"), os.path.join(tmp, "bank.xml")
+        rasters = grid_town_rasters(grid)
+        np.savez(town_path, **rasters)
+        t0 = time.perf_counter()
+        raster_planner(town_path, read=read_town_npz)
+        secs["planner"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lane_routes = generate_random_routes(
+            grid, n_routes, min_length=100.0, max_length=min(370.0, cfg.sim.max_route_len - 20.0),
+            seed=0, max_tries=tries)
+        secs["routes"] = time.perf_counter() - t0
+        specs = [keypoint_spec(r, str(i)) for i, r in enumerate(lane_routes)]
+        bank = [keypoint_spec(p, f"loop{i}") for i, p in enumerate(grid_lane_loops(grid))]
+        write_routes_xml(routes_xml, specs)
+        write_routes_xml(bank_xml, bank)
+        cache.CACHE_DIR = os.path.join(tmp, "towns")
+        try:
+            t0 = time.perf_counter()
+            town, routes, scens = town05_world(cfg, n_worlds, town_path, routes_xml, device,
+                                               bank_files=[bank_xml], read=read_town_npz,
+                                               caps=caps)
+            secs["world"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            again = cache.town05_cached(town_path, [routes_xml, bank_xml], device=device,
+                                        read=read_town_npz, **caps)
+            secs["cache"] = time.perf_counter() - t0
+            n_files = len(os.listdir(cache.CACHE_DIR))
+        finally:
+            cache.CACHE_DIR = cache_dir
+    if n_files != 1:
+        raise AssertionError(f"the town cache holds {n_files} files, not 1")
+    for f in dataclasses.fields(again):
+        if not torch.equal(getattr(again, f.name), getattr(town, f.name)):
+            raise AssertionError(f"the town cache changed {f.name}")
+    counts = {k: int(getattr(town, v).sum()) for k, v in (
+        ("lane points", "lane_valid"), ("road segments", "road_seg_valid"),
+        ("lane segments", "lane_seg_valid"), ("lights", "tl_valid"), ("spawns", "spawn_valid"))}
+    counts.update(routes=len(specs), bank=len(bank), raster=rasters["road"].shape[0],
+                  keypoints=sum(len(s.keypoints) for s in specs + bank))
+    return town, routes.cpu().numpy(), scens, secs, counts
+
+
+def town_import(cfg, policy, device, card: str, on_card: bool, small: bool,
+                n_worlds: int, n_ticks: int, n_vehicles: int) -> dict:
+    """[town import]: the imported-town path at the bench's width. The
+    town and n_worlds of its routes with Scenario3 and Scenario7 armed at a
+    third and two thirds (imported_town, through bench.town05_world), the
+    reset, n_ticks ticks of the Roach rollout with K1's count set to 0 just
+    before and read just after; K1 against its plain version on the last
+    frame (0 pixels off), its time and bound on these tables; a small
+    rollout on the compiled town on the card against the CPU. -> the row's
+    numbers and the town, routes for [reference export]."""
+    from thinktwice_tpu_torch.ops.birdview_cuda import (
+        K1, birdview_bits_cuda, birdview_bits_plain, decode_bits)
+    from thinktwice_tpu_torch.ops.raycast_cuda import K2
+    from thinktwice_tpu_torch.rollout import rollout
+    from thinktwice_tpu_torch.sensors import birdview as birdview_mod
+    from thinktwice_tpu_torch.sensors.birdview import birdview_inputs
+    from thinktwice_tpu_torch.sim.reset import reset_world
+    from thinktwice_tpu_torch.sim.state import state_to_arrays
+
+    town, routes, scens, secs, counts = imported_town(cfg, device, small, n_worlds)
+    log(f"[town import] grid town of {TOWN_BLOCKS if not small else 2}^2 blocks as an imported "
+        f"town ({counts['raster']} px a side at 5 px/m, stopline layer from its stop lines): "
+        f"planner {secs['planner']:.2f} s, {counts['routes']} lane-graph routes "
+        f"{secs['routes']:.2f} s; bench.town05_world on their route XML and a bank XML of "
+        f"{counts['bank']} lane loops ({counts['keypoints']} keypoints): {len(routes)} routes "
+        f"of 100 m to R - 10 m planned, the town compiled and cached in {secs['world']:.2f} s, "
+        f"the cache file read back in {secs['cache']:.2f} s; "
+        + ", ".join(f"{v} {k}" for k, v in counts.items()
+                    if k not in ("routes", "bank", "keypoints", "raster"))
+        + f" (capacities {town.lane_pts.shape[0]}, {town.road_segs.shape[0]}, "
+        f"{town.lane_segs.shape[0]}, {town.tl_pos.shape[0]}, {town.spawn.shape[0]})")
+    g = torch.Generator(device=device).manual_seed(TOWN_SEED)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    states0 = reset_world(cfg, town, torch.as_tensor(routes, device=device),
+                          n_vehicles=n_vehicles, scenario=scens, generator=g)
+    if on_card:
+        torch.cuda.synchronize()
+    reset_s = time.perf_counter() - t0
+    reset_peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else float("nan")
+    prims, _ = birdview_inputs(cfg.birdview, town, states0)
+    rows, in_use = prims.shape[1], float((prims[..., 1] >= 0).sum()) / prims.shape[0]
+    del prims
+    comp0 = float(states0.criteria.route_completion.mean())
+    with Spy(birdview_mod, "birdview_bits", keep=1) as k1_rec:
+        K1.launches = K2.launches = 0
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final, _, controls = rollout(cfg, policy, town, states0, n_ticks, generator=g)
+        if on_card:
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches, k2_n = K1.launches, K2.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else float("nan")
+    expected = n_ticks // 2 if on_card else 0
+    arrays = state_to_arrays(final)
+    _compare_arrays(arrays, arrays)          # raises on a non-finite field
+    comp1 = float(final.criteria.route_completion.mean())
+    log(f"[town import] {n_worlds} worlds x {n_ticks} ticks on the compiled town "
+        f"({n_vehicles} vehicles, Scenario3 and Scenario7 on every route): {rows} table rows "
+        f"a world ({in_use:.1f} in use), reset {reset_s:.3f} s (peak {reset_peak:.2f} GiB), "
+        f"rollout {seconds:.3f} s: {n_worlds * n_ticks / seconds:.1f} env-steps/s on {card}; "
+        f"K1 launches {launches} (expected {expected}), K2 launches {k2_n}; peak memory "
+        f"{peak:.2f} GiB; mean "
+        f"route completion {comp0:.4f} -> {comp1:.4f}, driven "
+        f"{float(final.criteria.dist_driven.mean()):.2f} m")
+    if launches != expected or k2_n != 0:
+        raise AssertionError(f"K1 launched {launches} and K2 {k2_n} times on the imported town")
+    if any(not torch.isfinite(c).all() for c in controls) or not np.all(arrays["tick"] == n_ticks):
+        raise AssertionError("the imported town's rollout went wrong")
+    if not float(final.criteria.dist_driven.mean()) > 0.0:
+        raise AssertionError("the egos did not move on the imported town")
+    row = {"launches": launches, "k2": k2_n, "rows": rows}
+    if on_card:
+        _, prims, ego = k1_rec.calls[-1][:3]
+        bits_k = birdview_bits_cuda(cfg.birdview, prims, ego)
+        bits_p = birdview_bits_plain(cfg.birdview, prims, ego)
+        torch.cuda.synchronize()
+        mism = int((bits_k != bits_p).sum())
+        err = float((decode_bits(cfg.birdview, bits_k) - decode_bits(cfg.birdview, bits_p))
+                    .abs().max())
+        log(f"[k1 vs plain, imported town] the rollout's last policy call, {tuple(prims.shape)} "
+            f"prims ({-(-prims.shape[1] // 4096)} chunks of 4096 rows): {mism} of "
+            f"{bits_k.numel()} pixels differ, max abs err {err}")
+        if mism or int((bits_p != 0).sum()) == 0 or prims.shape[1] <= 4096:
+            raise AssertionError("K1 differs from its plain version on the imported town")
+        ms = cuda_ms(lambda: birdview_bits_cuda(cfg.birdview, prims, ego), reps=20)
+        plain_ms = cuda_ms(lambda: birdview_bits_plain(cfg.birdview, prims, ego), reps=1,
+                           warmup=1)
+        bound_ms, bound_by, pairs = k1_bound(cfg.birdview, prims, ego)
+        used = float((prims[..., 1] >= 0).sum()) / prims.shape[0]
+        log(f"[k1 time, imported town] {ms:.4f} ms a launch (plain {plain_ms:.3f} ms, bound "
+            f"{bound_ms:.4f} ms by {bound_by}, {pairs} pixel-primitive pairs; {used:.1f} of "
+            f"{prims.shape[1]} rows a world in use) on {card}")
+        row.update(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        del prims, ego, bits_k, bits_p
+        town_card_vs_cpu(town, routes, device)
+    del final, states0, controls
+    return row, town, routes
+
+
+def town_card_vs_cpu(town, routes, device):
+    """The route evaluator on the compiled town, TOWN_CPU_WORLDS of its
+    routes for TOWN_CPU_TICKS ticks with the roach_rl6 expert every 2
+    ticks, once on the card and once on the CPU with the same draws: the
+    records must agree as eval_card_vs_cpu holds them."""
+    from thinktwice_tpu_torch.agents.expert import make_expert_policy
+    from thinktwice_tpu_torch.config import bench_config
+    from thinktwice_tpu_torch.harness.evaluator import GeneratorDraws
+    from thinktwice_tpu_torch.weights import load_roach_policy
+
+    cfg = bench_config()
+    runs = {}
+    for dev in (torch.device(device), torch.device("cpu")):
+        fn = make_expert_policy(cfg, load_roach_policy(WEIGHTS, cfg, dev))
+        runs[dev.type] = run_eval(
+            cfg, town.to(dev), list(routes[:TOWN_CPU_WORLDS]), fn, n_vehicles=8,
+            max_steps=TOWN_CPU_TICKS, worlds_per_batch=TOWN_CPU_WORLDS,
+            segment_steps=TOWN_CPU_TICKS, policy_every=2, draws=GeneratorDraws(6, device="cpu"))
+    (g_d, rec_d, log_d, wall_d), (g_c, rec_c, _, wall_c) = runs[device.type], runs["cpu"]
+    worst = compare_records(rec_d, rec_c, "town card vs cpu")
+    log(f"[town card vs cpu] the expert on the compiled town, {len(rec_d)} routes x "
+        f"{log_d[0]['ticks']} ticks: statuses {[r['status'] for r in rec_d]}, driving score "
+        f"{g_d['scores']['score_composed']:.4f} on {device.type} and "
+        f"{g_c['scores']['score_composed']:.4f} on cpu; record floats within {worst:.2e} "
+        f"(limit {EVAL_TOL}); {wall_d:.2f} s on {device.type}, {wall_c:.2f} s on cpu")
+
+
+def reference_export(town, routes, device, card: str, on_card: bool) -> dict:
+    """[reference export]: one world of collect_batch on the compiled town,
+    EXPORT_FRAMES frames (K1 and K2 counted), exported in the reference's
+    layout with export_route and export_metadata and read back with
+    ReferenceDataset and the PNG reader, with neither PIL nor cv2: images
+    within 1/255, depth within 1 cm, seg exact, measurements and
+    supervision equal to the frames'; K2 against its plain version on the
+    last frame's rays."""
+    import tempfile
+
+    from thinktwice_tpu_torch.config import bench_config
+    from thinktwice_tpu_torch.ops.birdview_cuda import K1
+    from thinktwice_tpu_torch.ops.raycast_cuda import K2
+    from thinktwice_tpu_torch.sim.reset import reset_world
+    from thinktwice_tpu_torch.train.collect import collect_batch
+    from thinktwice_tpu_torch.train.export_reference import (
+        CAMERAS, export_metadata, export_route)
+    from thinktwice_tpu_torch.train.png import read_png
+    from thinktwice_tpu_torch.train.reference_dataset import ReferenceDataset
+    from thinktwice_tpu_torch.weights import load_roach_policy
+
+    cfg = bench_config() if on_card else student_tiny_config()
+    policy = load_roach_policy(WEIGHTS, cfg, device=device)
+    g = torch.Generator(device=device).manual_seed(TOWN_SEED + 1)
+    state = reset_world(cfg, town, torch.as_tensor(routes[-1:], device=device), n_vehicles=8,
+                        generator=g)
+    with K2Inputs(keep=2) as k2_rec:
+        K1.launches = K2.launches = 0
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, frames, sensors = collect_batch(cfg, policy, town, state, EXPORT_FRAMES, generator=g)
+        if on_card:
+            torch.cuda.synchronize()
+        collect_s = time.perf_counter() - t0
+        k1_n, k2_n = K1.launches, K2.launches
+    exp = (EXPORT_FRAMES * 6, EXPORT_FRAMES * 2) if on_card else (0, 0)
+    if (k1_n, k2_n) != exp:
+        raise AssertionError(f"the export's collection launched K1 {k1_n} and K2 {k2_n} times")
+    sens = {k: v[0].cpu().numpy() for k, v in sensors.items()}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        n = export_route(os.path.join(root, "town_grid6_00"), frames, sensors)
+        meta = export_metadata(root, os.path.join(root, "dataset_metadata.pkl"))
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ds = ReferenceDataset(root, os.path.join(root, "dataset_metadata.pkl"))
+        worst = {"rgb": 0.0, "depth": 0.0}
+        for i in range(n):
+            route_dir = os.path.join(root, "town_grid6_00")
+            with open(os.path.join(route_dir, "measurements", f"{i:04d}.json")) as f:
+                m = json.load(f)
+            sup = np.load(os.path.join(route_dir, "supervision", f"{i:04d}.npy"),
+                          allow_pickle=True)[()]
+            want = {"x": frames.pos[0, i, 0], "y": frames.pos[0, i, 1], "theta": frames.yaw[0, i],
+                    "speed": frames.speed[0, i], "steer": frames.control[0, i, 0],
+                    "throttle": frames.control[0, i, 1], "brake": frames.control[0, i, 2]}
+            if any(m[k] != float(v) for k, v in want.items()) or m["target_command"] != int(
+                    frames.command[0, i]) + 1:
+                raise AssertionError(f"frame {i}'s measurements differ from the frame")
+            for key, name in (("action", "action"), ("action_mu", "alpha"),
+                              ("action_sigma", "beta"), ("value", "value"),
+                              ("features", "features")):
+                if not np.array_equal(sup[key], frames.supervision[name][0, i].cpu().numpy()):
+                    raise AssertionError(f"frame {i}'s supervision {key} differs")
+            for k, grid in enumerate(frames.supervision["cnn_features"]):
+                if not np.array_equal(sup["cnn_features"][k], grid[0, i].cpu().numpy()):
+                    raise AssertionError(f"frame {i}'s cnn_features {k} differ")
+            for c, cam in enumerate(CAMERAS):
+                rgb = read_png(os.path.join(route_dir, cam, f"{i:04d}.png")) / 255.0
+                depth = read_png(os.path.join(route_dir, cam.replace("rgb", "depth"),
+                                              f"{i:04d}.png")) / 100.0
+                seg = read_png(os.path.join(route_dir, cam.replace("rgb", "seg"), f"{i:04d}.png"))
+                worst["rgb"] = max(worst["rgb"], float(np.abs(rgb - sens["rgb"][i, c]).max()))
+                worst["depth"] = max(worst["depth"],
+                                     float(np.abs(depth - sens["depth"][i, c]).max()))
+                if not np.array_equal(seg, sens["semantic"][i, c].astype(np.uint8)):
+                    raise AssertionError(f"frame {i} camera {cam}: seg differs")
+        items = [ds[i] for i in range(len(ds))]
+        for i, item in enumerate(items):
+            if not np.array_equal(item["pos"], frames.pos[0, i].cpu().numpy()) or not np.isfinite(
+                    item["gt_waypoints"]).all():
+                raise AssertionError(f"item {i} differs from its frame")
+        imgs = ds.load_images(0)
+        read_s = time.perf_counter() - t0
+    log(f"[reference export] 1 world x {EXPORT_FRAMES} frames collected on the compiled town "
+        f"in {collect_s:.3f} s on {card} (K1 {k1_n}, K2 {k2_n}), exported in {export_s:.3f} s "
+        f"({meta}), read back in {read_s:.3f} s without PIL or cv2 (PIL loaded: "
+        f"{'PIL' in sys.modules}, cv2 loaded: {'cv2' in sys.modules}): {len(items)} items, "
+        f"images {tuple(imgs.shape)} within {worst['rgb']:.2e} (limit {1 / 255:.2e}), depth "
+        f"within {worst['depth']:.2e} m (limit 0.01), seg, measurements and supervision equal")
+    if worst["rgb"] > 1 / 255 or worst["depth"] > 0.01 or meta != {"town_grid6_00": n}:
+        raise AssertionError("the reference export does not read back")
+    row = {"k1": k1_n, "k2": k2_n}
+    if on_card:
+        inputs = [(name, *call) for name, call in zip(("cameras", "lidar"), k2_rec.calls)]
+        row["k2_err"] = compare_k2(inputs, "reference export, the last collected frame")
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -1786,18 +2165,38 @@ def main() -> int:
     ddp_dryrun(on_card, card)
     sharded_k1, sharded_k2 = worlds_sharded(cfg, device, card, on_card, n_worlds, n_vehicles,
                                             n_ticks)
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # ---- phase 11: an imported town, its rollout and the reference export ---
+    policy = load_roach_policy(WEIGHTS, cfg, device=device)
+    town_row, town05, town_routes = town_import(cfg, policy, device, card, on_card, args.small,
+                                                n_worlds, n_ticks, n_vehicles)
+    del policy
+    export = reference_export(town05, town_routes, device, card, on_card)
+    del town05
+    if on_card:
+        torch.cuda.empty_cache()
 
     if on_card:
         k1_row["train_launches"], k2_row["train_launches"] = train["k1_train"], train["k2_train"]
         k1_row["ppo_launches"], k1_row["bc_launches"] = expert["ppo"], expert["bc"]
         k1_row["sharded_launches"], k2_row["sharded_launches"] = sharded_k1, sharded_k2
         k2_row["ppo_launches"] = k2_row["bc_launches"] = 0
-        k1_row["max_abs_err"] = max(k1_row["max_abs_err"], train["k1_err"], expert["err"])
-        k2_row["max_abs_err"] = max(k2_row["max_abs_err"], train["k2_err"])
+        k1_row["town_launches"], k2_row["town_launches"] = town_row["launches"], town_row["k2"]
+        k1_row["export_launches"], k2_row["export_launches"] = export["k1"], export["k2"]
+        for k in ("rows", "ms", "plain_ms", "bound_ms", "bound_by"):
+            k1_row[f"town_{k}"] = town_row[k]
+        k1_row["max_abs_err"] = max(k1_row["max_abs_err"], train["k1_err"], expert["err"],
+                                    town_row["err"])
+        k2_row["max_abs_err"] = max(k2_row["max_abs_err"], train["k2_err"], export["k2_err"])
         keys = ("name", "route", "source", "replaces", "launches", "train_launches",
-                "ppo_launches", "bc_launches", "sharded_launches",
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-        log(json.dumps({"kernels": [{k: row[k] for k in keys} for row in (k1_row, k2_row)]}))
+                "ppo_launches", "bc_launches", "sharded_launches", "town_launches",
+                "export_launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")
+        town_keys = ("town_rows", "town_ms", "town_plain_ms", "town_bound_ms", "town_bound_by")
+        log(json.dumps({"kernels": [{k: row[k] for k in keys + (town_keys if row is k1_row else ())}
+                                    for row in (k1_row, k2_row)]}))
         log(card_line(device))
         device_info = {"platform": "gpu", "kind": kind,
                        "count": torch.cuda.device_count()}

@@ -1,7 +1,8 @@
 """PyTorch port on the card: each CUDA kernel against its plain version (K1
 the birdview rasterizer, K2 the ray-vs-box intersector), also on a frame
-collected for training, the card's world step against the CPU's, one
-train step of a tiny student, and one small PPO and BC iterate of the
+collected for training and on a table of an imported town's size, the
+card's world step against the CPU's, one train step of a tiny student,
+and one small PPO and BC iterate of the
 Roach expert (K1 on their rollouts), on the card against the CPU, and a
 data-parallel step over a 1-rank NCCL and a 2-rank gloo group on the card
 against the one-process step. These tests need an NVIDIA card and skip
@@ -343,6 +344,39 @@ def test_k1_table_over_the_shared_budget_on_card(card):
     wx, wy = k1.pixel_world_coords(CFG.birdview, ego)
     centre = torch.stack([wx.mean(1), wy.mean(1)], dim=-1)
     _k1_equal(card, _prim_rows(2, 4096 + 300, centre, 45.0, seed=1), ego)
+
+
+@pytest.mark.cuda
+def test_k1_on_an_imported_town_table_matches_plain_on_card(card):
+    """A town compiled from planned routes at the bench's Town05 capacities:
+    every world's table holds ~25,000 rows (7 chunks of K1's 4096), of which
+    the town's road and lane segments are in use in every world."""
+    import numpy as np
+
+    from thinktwice_tpu_torch.bench import TOWN05_CAPS, scenario_batch
+    from thinktwice_tpu_torch.harness.route_parser import RouteSpec
+    from thinktwice_tpu_torch.maps.compile_h5 import compile_town_arrays
+    from thinktwice_tpu_torch.maps.procedural import grid_town_rasters, make_grid_town
+    from thinktwice_tpu_torch.maps.router import RasterPlanner, generate_random_routes
+    from thinktwice_tpu_torch.sim.reset import reset_world
+
+    grid = make_grid_town(n_blocks=2, block=100.0, device="cpu")
+    rasters = grid_town_rasters(grid)
+    planner = RasterPlanner(rasters["road"], rasters["world_offset"], rasters["pixels_per_meter"])
+    routes = generate_random_routes(grid, 12, min_length=100.0, seed=0)
+    specs = [RouteSpec(str(i), "grid", r[::12, :2].astype(np.float64),
+                       np.rad2deg(r[::12, 2]).astype(np.float64)) for i, r in enumerate(routes)]
+    dense = np.stack([s.dense(spacing=1.0, max_len=CFG.sim.max_route_len, planner=planner)
+                      for s in specs])
+    town = compile_town_arrays(rasters, [s.dense(spacing=2.0, planner=planner) for s in specs],
+                               device=card, **dict(TOWN05_CAPS, max_lights=64, max_stops=8))
+    g = torch.Generator(device=card).manual_seed(0)
+    state = reset_world(CFG, town, torch.as_tensor(dense, device=card), n_vehicles=12,
+                        scenario=scenario_batch(CFG, dense, card), generator=g)
+    prims, ego = birdview_inputs(CFG.birdview, town, state)
+    assert prims.shape[1] > 3 * 4096
+    assert int((prims[..., 1] >= 0).sum(dim=1).min()) > 600
+    _k1_equal(card, prims, ego)
 
 
 TINY = Config(

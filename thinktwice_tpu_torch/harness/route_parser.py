@@ -31,11 +31,12 @@ class RouteSpec:
               planner=None) -> np.ndarray:
         """(N, 3) dense (x, y, yaw_rad).
 
-        With `planner` (an object whose plan(keypoints, yaws, spacing,
-        max_len) plans over the town's roads) the planner densifies; without
-        it, a posed Hermite spline (fine for procedural towns whose routes
-        come from the lane graph already; it cuts corners off the road for
-        sparse imported keypoints)."""
+        With `planner` (a `maps.router.RasterPlanner` of the route's town,
+        or any object whose plan(keypoints, yaws, spacing, max_len) plans
+        over its roads) the planner densifies; without it, a posed Hermite
+        spline (fine for procedural towns whose routes come from the lane
+        graph already; it cuts corners off the road for sparse imported
+        keypoints)."""
         if planner is not None:
             return planner.plan(self.keypoints, self.keypoint_yaws,
                                 spacing, max_len)

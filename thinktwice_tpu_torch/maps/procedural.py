@@ -273,3 +273,30 @@ def make_grid_town(
         lane_segs=j(pad_rows(lane_segs, max_lane_segs)),
         lane_seg_valid=j(pad_rows(np.ones(len(lane_segs), bool), max_lane_segs).astype(bool)),
     )
+
+
+def grid_town_rasters(town: TownMap) -> dict:
+    """A town's rasters in the layout of a town H5 (`maps.compile_h5.
+    read_town_h5`): road, the lane markings and sidewalk as they are, and a
+    stopline raster drawn from the valid traffic-light stop lines, 3 px
+    wide. It stands in for an imported town's H5 where none is at hand."""
+    ppm = float(town.pixels_per_meter)
+    offset = town.world_offset.detach().cpu().numpy().astype(np.float64)
+    road = town.road.detach().cpu().numpy().astype(np.uint8)
+    stopline = np.zeros_like(road)
+    h, w = road.shape
+    for (a, b) in town.tl_stopline[town.tl_valid].detach().cpu().numpy().astype(np.float64):
+        pa, pb = (a - offset) * ppm, (b - offset) * ppm
+        n = max(int(np.ceil(2.0 * np.linalg.norm(pb - pa))), 1)
+        for t in np.linspace(0.0, 1.0, n + 1):
+            px, py = (pa + t * (pb - pa)).astype(int)
+            stopline[max(py - 1, 0):min(py + 2, h), max(px - 1, 0):min(px + 2, w)] = 1
+    return {
+        "road": road,
+        "lane_marking_all": town.lane_all.detach().cpu().numpy().astype(np.uint8),
+        "lane_marking_white_broken": town.lane_broken.detach().cpu().numpy().astype(np.uint8),
+        "sidewalk": town.sidewalk.detach().cpu().numpy().astype(np.uint8),
+        "stopline": stopline,
+        "world_offset": offset,
+        "pixels_per_meter": ppm,
+    }

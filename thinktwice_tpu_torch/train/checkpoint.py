@@ -18,6 +18,7 @@ from __future__ import annotations
 import os
 import re
 
+import numpy as np
 import torch
 
 from thinktwice_tpu_torch.agents.roach import RoachPolicy
@@ -85,13 +86,19 @@ def restore_train_state(ckpt_dir: str, template: TrainState) -> TrainState:
                                           nu=on(opt["nu"])))
 
 
-def archive_params(path: str, params: dict) -> None:
+def archive_params(path: str, params: dict, cast_floats: torch.dtype | None = None) -> None:
     """ThinkTwiceModel or RoachPolicy parameters (state_dict tensors, by
-    name) -> a flax msgpack archive of float32 leaves."""
+    name) -> a flax msgpack archive. The leaves are float32 unless
+    cast_floats names another float type: with torch.bfloat16 each leaf is
+    rounded to nearest even and written under the dtype name "bfloat16",
+    as flax writes an ml_dtypes bfloat16 array (a smaller archive that
+    knowingly loses precision)."""
     if "features_extractor.linear0.weight" in params:
         tree = flax_tree_from_roach_state_dict(params)
     else:
         tree = flax_tree_from_student_state_dict(params)
+    if cast_floats is not None:
+        tree = _cast_leaves(tree, cast_floats)
     data = packb(tree)
 
     def write(tmp):
@@ -99,6 +106,17 @@ def archive_params(path: str, params: dict) -> None:
             f.write(data)
 
     _atomic_write(path, write)
+
+
+def _cast_leaves(tree, dtype: torch.dtype):
+    """The float leaves of a tree of numpy arrays cast to dtype: torch
+    bfloat16 tensors (numpy has none), numpy arrays for any other type."""
+    if isinstance(tree, dict):
+        return {k: _cast_leaves(v, dtype) for k, v in tree.items()}
+    if not np.issubdtype(tree.dtype, np.floating):
+        return tree
+    cast = torch.from_numpy(np.ascontiguousarray(tree)).to(dtype)
+    return cast if dtype == torch.bfloat16 else cast.numpy()
 
 
 def restore_archive(path: str, template: torch.nn.Module) -> dict:

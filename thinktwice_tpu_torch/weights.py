@@ -7,7 +7,10 @@ no msgpack package. It covers maps, arrays, str, bin, int, float, nil and
 bool, and flax's extension types 1 (an ndarray as a msgpack triple
 (shape, dtype name, bytes)) and 3 (a numpy scalar). `packb` is the encoder
 beside it, with msgpack's choice of the smallest form of each value, so a
-tree of numpy arrays encodes to the bytes flax writes for it.
+tree of numpy arrays encodes to the bytes flax writes for it. numpy has no
+bfloat16: a bfloat16 leaf is read as float32 (its 16 bits are the upper
+half of one, so the value is exact), and a torch bfloat16 tensor is written
+under flax's dtype name "bfloat16".
 
 `roach_state_dict_from_flax` maps the flax Roach param tree onto
 `agents.roach.RoachPolicy`'s state_dict: conv kernels HWIO -> OIHW, Dense
@@ -113,6 +116,11 @@ def _map(r: _Reader, n: int) -> dict:
 
 def _ndarray(data: bytes) -> np.ndarray:
     shape, dtype_name, buf = unpackb(data)
+    if dtype_name == "bfloat16":
+        # numpy has no bfloat16: its 16 bits are the upper half of a
+        # float32, so the leaf widens to float32 exactly
+        bits = np.frombuffer(buf, dtype="<u2").astype(np.uint32) << 16
+        return bits.view(np.float32).reshape(shape)
     return np.frombuffer(buf, dtype=np.dtype(dtype_name)).reshape(shape)
 
 
@@ -179,6 +187,9 @@ def _encode(obj, out: bytearray) -> None:
         out += b"\xc3" if obj else b"\xc2"
     elif isinstance(obj, np.ndarray):
         _ext_bytes(_EXT_NDARRAY, packb((obj.shape, obj.dtype.name, obj.tobytes("C"))), out)
+    elif isinstance(obj, torch.Tensor) and obj.dtype == torch.bfloat16:
+        bits = obj.detach().cpu().contiguous().view(torch.int16).numpy().astype("<i2")
+        _ext_bytes(_EXT_NDARRAY, packb((tuple(obj.shape), "bfloat16", bits.tobytes())), out)
     elif isinstance(obj, np.generic):
         _ext_bytes(_EXT_NPSCALAR,
                    packb(((), np.asarray(obj).dtype.name, np.asarray(obj).tobytes())), out)
@@ -208,8 +219,9 @@ def _encode(obj, out: bytearray) -> None:
 
 def packb(obj) -> bytes:
     """Encode one object: dicts, lists and tuples of None, bool, int,
-    float, str, bytes, numpy arrays and numpy scalars (flax's extension
-    types)."""
+    float, str, bytes, numpy arrays, numpy scalars and torch bfloat16
+    tensors (flax's extension types; a bfloat16 tensor is written as the
+    array of dtype name "bfloat16" that flax writes for ml_dtypes')."""
     out = bytearray()
     _encode(obj, out)
     return bytes(out)
