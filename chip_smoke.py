@@ -22,7 +22,7 @@ against its CPU run on small inputs, and drives both rollouts:
   K1 against its plain version on a rollout frame, a small PPO iterate on
   the card against the CPU, the breakdown of a macro step; then BC at its
   recipe (24 worlds x 256 ticks, 96 vehicles, perturbation 0.05) for one
-  iteration and the held-out probe (8 worlds x 768 ticks), and a small BC
+  iteration and the held-out probe (8 worlds x 384 ticks), and a small BC
   iterate on the card against the CPU;
 - several processes (`parallel/launch.py`, one joined within a time limit
   for each rank): the data-parallel step of student_rl6 on the collected
@@ -39,10 +39,22 @@ against its CPU run on small inputs, and drives both rollouts:
   cache file read back; the Roach rollout
   at the bench's shape on it with Scenario3 and Scenario7 armed (K1 on
   ~26,000 table rows a world, above the kernel's 4096-row chunk), K1
-  against its plain version and timed there, a small evaluation on the
-  card against the CPU; then one world's collection on it exported in the
-  reference's dataset layout and read back, without PIL or cv2 (K2
-  against its plain version on its last frame).
+  against its plain version and timed there, one route cut to 30 m
+  evaluated on the card against the CPU; then one world's collection on it
+  exported in the reference's dataset layout and read back, without PIL
+  or cv2 (K2 against its plain version on its last frame);
+- the Longest6 evaluation of scripts/eval_longest6.py on that town: its
+  Config with 500 background vehicles (508 slots, 302 active: Town05's
+  spawn points), the six longest lane-graph routes planned to 3,584
+  points with map-derived scenarios, 6 worlds in 256-tick segments to
+  1,024 ticks, stop penalty 1.0; K1 against its plain version on the last
+  policy call's 508-slot table, timed, and render_birdview_rgb of K1's
+  masks against the plain version's.
+
+Depths cut to keep the run within its clock: the expert evaluation stops
+at 1,024 ticks, the BC probe at 384, the small card-vs-CPU train step
+takes one example. A `[phase seconds]` line gives each phase's wall
+seconds.
 
     python3 chip_smoke.py                       # on a machine with one card
     python3 chip_smoke.py --device cpu --small  # CPU rehearsal, plain versions
@@ -86,14 +98,18 @@ STUDENT_WARMUP = 3         # untimed student ticks before the timed run
 STUDENT_CTRL_TOL = 5e-2    # card vs CPU controls of the bfloat16 student
 EVAL_TOL = 1e-2            # card vs CPU record floats (scores, route_length, duration_game)
 EVAL_SEGMENT = 256         # ticks between the expert evaluation's done checks
+EVAL_EXPERT_TICKS = 1024   # the expert evaluation's tick bound, cut from its timeout's 3072
+TRAIN_CPU_EXAMPLES = 1     # [train card vs cpu]: the collected examples of its step
 STUDENT_EVAL_STEPS, STUDENT_EVAL_SEGMENT = 40, 20
 TRAIN_FRAMES = 13          # frames a chunk: 13 - 4 - 1 = 8 two-sweep examples
+TRAIN_FRAMES_SMALL = 7     # the rehearsal's chunk: 2 examples, one a rank of [ddp step]
 TRAIN_STEPS = 3            # optimizer steps of student_rl6
 TRAIN_TOL = 1e-3           # card vs CPU float32 train step: losses, grad_norm, the update
 GRAD_TOL, GRAD_COS = 1e-2, 0.99   # ... its gradient: of the norm; each leaf's cosine
 BC5_WEIGHTS = os.path.join(REPO, "runs", "roach_bc5", "params.msgpack")
 PPO_ENVS, PPO_STEPS, PPO_ITERS = 24, 128, 2   # the fine-tune recipe, two iterations
 BC_ROUTES = 32             # grid routes of the BC recipe; the tail 8 are the probe's
+BC_PROBE_TICKS = 384       # the probe's ticks, cut from the recipe's 768
 DDP_RANKS = 2              # gloo ranks sharing the one card in [ddp step] and [worlds sharded]
 DDP_TIMEOUT = 600.0        # s a spawned group may take before its ranks are killed
 SHARDED_SEED = 45          # the generator of the sharded rollout's resets and draws
@@ -103,12 +119,39 @@ TOWN_BLOCKS = 6            # [town import]: 6 x 6 blocks of 100 m, 3,200 px a si
 TOWN_ROUTES, TOWN_MAX_TRIES = 80, 1000   # lane-graph routes of 100-370 m, and the tries for them
 KEYPOINT_M = 25.0          # a route keypoint every ~25 m, densified by the RasterPlanner
 TOWN_SEED = 46             # the generator of the imported town's resets and draws
-TOWN_CPU_WORLDS, TOWN_CPU_TICKS = 2, 20   # [town card vs cpu]
+TOWN_CPU_ROUTE_M = 30      # [town card vs cpu]: one route cut to 30 m,
+TOWN_CPU_TICKS, TOWN_CPU_SEGMENT = 400, 20   # run to done or 400 ticks, checked every 20
 EXPORT_FRAMES = 7          # [reference export]: one world's frames, 7 - 4 = 3 dataset items
+# [longest6]: scripts/eval_longest6.py:107-117 with --vehicles 500 on the imported town
+L6_VEHICLES = 500          # background vehicles asked for; 8 more slots for scenario actors
+L6_SPAWN_CAP = 302         # CARLA_SPAWN_POINTS["Town05"] (eval_longest6.py:73-80)
+L6_ROUTE_LEN = 3584        # eval_longest6.py MAX_ROUTE_LEN
+L6_WORLDS, L6_SEGMENT = 6, 256   # the script's --worlds-per-batch and --segment
+L6_TICKS = 1024            # the tick bound of the cut evaluation: 4 segments
+L6_ROUTE_TRIES = 120       # lane-graph routes tried; the six longest are kept
+L6_SEED = 47               # the route generator's seed
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+class PhaseClock:
+    """Wall seconds of each phase of the run, from the script's start."""
+
+    def __init__(self):
+        self.t0 = self.last = time.perf_counter()
+        self.secs: dict[str, float] = {}
+
+    def lap(self, name: str) -> None:
+        now = time.perf_counter()
+        self.secs[name] = now - self.last
+        self.last = now
+
+    def line(self) -> str:
+        total = time.perf_counter() - self.t0
+        return ("[phase seconds] " + ", ".join(f"{k} {v:.1f}" for k, v in self.secs.items())
+                + f"; total {total:.1f}")
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -132,26 +175,19 @@ def k1_bound(cfg, prims, ego):
     Operations: every pixel's coordinates plus one coverage test for each
     (pixel, primitive) pair whose primitive's bounding box holds the pixel,
     counted on these inputs."""
-    from thinktwice_tpu_torch.ops.birdview_cuda import pixel_world_coords
+    from thinktwice_tpu_torch.ops.birdview_cuda import pixel_world_coords, row_bounds
 
     B, NP, _ = prims.shape
     W = cfg.width
     wx, wy = pixel_world_coords(cfg, ego)
     wx, wy = wx[..., None], wy[..., None]
+    x0, x1, y0, y1 = row_bounds(prims)
+    used = prims[..., 1] >= 0
     pairs = 0
     for k0 in range(0, NP, 64):
-        p = prims[:, None, k0:k0 + 64, :]
-        seg = p[..., 0] < 0.5
-        xb, yb = p[..., 2] + p[..., 4], p[..., 3] + p[..., 5]
-        hx = torch.where(seg, p[..., 7],
-                         p[..., 4].abs() * p[..., 6] + p[..., 5].abs() * p[..., 7])
-        hy = torch.where(seg, p[..., 7],
-                         p[..., 5].abs() * p[..., 6] + p[..., 4].abs() * p[..., 7])
-        x0 = torch.where(seg, torch.minimum(p[..., 2], xb), p[..., 2]) - hx
-        x1 = torch.where(seg, torch.maximum(p[..., 2], xb), p[..., 2]) + hx
-        y0 = torch.where(seg, torch.minimum(p[..., 3], yb), p[..., 3]) - hy
-        y1 = torch.where(seg, torch.maximum(p[..., 3], yb), p[..., 3]) + hy
-        inside = (wx >= x0) & (wx <= x1) & (wy >= y0) & (wy <= y1) & (p[..., 1] >= 0)
+        k = slice(k0, k0 + 64)
+        inside = ((wx >= x0[:, None, k]) & (wx <= x1[:, None, k]) & (wy >= y0[:, None, k])
+                  & (wy <= y1[:, None, k]) & used[:, None, k])
         pairs += int(inside.sum())
     n_bytes = prims.numel() * 4 + ego.numel() * 4 + B * W * W * 4
     flops = pairs * K1_FLOP_PER_PAIR + B * W * W * K1_FLOP_PER_PIXEL
@@ -391,7 +427,7 @@ def eval_card_vs_cpu(policy_cpu, device, small: bool):
 
     cfg = small_config()
     routes, _ = eval_routes_small()
-    max_steps, segment = (16, 8) if small else (96, 32)
+    max_steps, segment = (8, 4) if small else (96, 32)
     for name in ("autopilot", "expert"):
         runs = {}
         for dev in (torch.device(device), torch.device("cpu")):
@@ -953,8 +989,8 @@ def train_step_card_and_cpu(cfg, part, device):
 
 
 def train_card_vs_cpu(cfg, batch, device):
-    """One train step of a small student on 2 examples of the collected
-    batch, on the card and on the CPU. In float32 compute: the loss terms
+    """One train step of a small student on TRAIN_CPU_EXAMPLES examples of
+    the collected batch, on the card and on the CPU. In float32 compute: the loss terms
     and grad_norm agree to TRAIN_TOL of their value; the gradient (the
     backward) to GRAD_TOL of its norm, and each leaf at a cosine of at
     least GRAD_COS; the card's updated parameters (the optimizer) to
@@ -970,7 +1006,7 @@ def train_card_vs_cpu(cfg, batch, device):
     from thinktwice_tpu_torch.train.crosscheck import float32_compute
 
     small = train_small_config(cfg)
-    part = slice_batch(batch, 2)
+    part = slice_batch(batch, TRAIN_CPU_EXAMPLES)
     res = {}
     for name, ctx in (("bfloat16", contextlib.nullcontext()), ("float32", float32_compute())):
         with ctx:
@@ -978,8 +1014,8 @@ def train_card_vs_cpu(cfg, batch, device):
         (m_d, m_c), (s_d, s_c) = r["metrics"], r["seconds"]
         t, c, u = (max(r["terms"], key=r["terms"].get), min(r["cos"], key=r["cos"].get),
                    max(r["update"], key=r["update"].get))
-        log(f"[train card vs cpu] {name}: a ResNet-10 two-sweep student, one step on 2 of the "
-            f"collected examples: loss {m_d['loss']:.6f} on {device.type}, {m_c['loss']:.6f} "
+        log(f"[train card vs cpu] {name}: a ResNet-10 two-sweep student, one step on "
+            f"{TRAIN_CPU_EXAMPLES} of the collected examples: loss {m_d['loss']:.6f} on {device.type}, {m_c['loss']:.6f} "
             f"on cpu; {len(r['terms'])} values (loss, terms, grad_norm) within "
             f"{r['terms'][t]:.2e} of their value ({t}); the gradient within {r['grad']:.2e} "
             f"of its norm, its {len(r['cos'])} leaves at cosine >= {r['cos'][c]:.6f} ({c}); "
@@ -1017,7 +1053,8 @@ def train_checkpoint(cfg, model, batch, device, on_card):
         loaded = load_student_model(path, cfg, device=device)
     same_params = all(torch.equal(v, loaded.state_dict()[k])
                       for k, v in model.state_dict().items())
-    part = slice_batch(batch, 2)
+    n_ex = 2 if on_card else 1              # the rehearsal forwards one example
+    part = slice_batch(batch, n_ex)
 
     def leaves(outs):
         return [t for v in outs.values() for t in (v if isinstance(v, tuple) else (v,))]
@@ -1032,7 +1069,7 @@ def train_checkpoint(cfg, model, batch, device, on_card):
     same = all(torch.equal(a, b) for a, b in zip(fwd[0], fwd[2]))
     log(f"[train checkpoint] params.msgpack {size} bytes written in {t_write:.2f} s; "
         f"weights.load_student_model: parameters equal {same_params}; the forward (teacher "
-        f"pass included) of 2 examples equal bit for bit {same} ({len(fwd[0])} outputs; the "
+        f"pass included) of {n_ex} example(s) equal bit for bit {same} ({len(fwd[0])} outputs; the "
         f"trained model twice: {repeat}) on {'the card' if on_card else 'the cpu'}")
     if not (same_params and same and repeat):
         raise AssertionError("the archived student does not give the trained one's forward")
@@ -1096,7 +1133,8 @@ def train_phases(args, on_card: bool, device, card: str, n_vehicles: int) -> dic
     town = make_grid_town(n_blocks=2, block=100.0, device=device)
     routes = torch.as_tensor(grid_routes(1, cfg.sim.max_route_len), device=device)
     g = torch.Generator(device=device).manual_seed(44)
-    stream = loop.collect_stream(cfg, policy, town, routes, g, frames_per_chunk=TRAIN_FRAMES,
+    frames = TRAIN_FRAMES_SMALL if args.small else TRAIN_FRAMES
+    stream = loop.collect_stream(cfg, policy, town, routes, g, frames_per_chunk=frames,
                                  n_vehicles=n_vehicles, n_sweeps=model.n_sweeps, n_worlds=1)
 
     # ---- collection, the training path's first stage ----
@@ -1113,18 +1151,18 @@ def train_phases(args, on_card: bool, device, card: str, n_vehicles: int) -> dic
     k1_n, k2_n = K1.launches, K2.launches
     final = chunk.results[0][0]
     n_ex = batch0["imgs"].shape[0]
-    exp_k1, exp_k2 = (TRAIN_FRAMES * 6, TRAIN_FRAMES * 2) if on_card else (0, 0)
-    log(f"[train collect] 1 world, {n_vehicles} vehicles, {TRAIN_FRAMES} frames of 10 ticks "
+    exp_k1, exp_k2 = (frames * 6, frames * 2) if on_card else (0, 0)
+    log(f"[train collect] 1 world, {n_vehicles} vehicles, {frames} frames of 10 ticks "
         f"(expert every 2 ticks and at each frame, 4 cameras of {cfg.camera.height} x "
         f"{cfg.camera.width}, lidar {cfg.lidar.n_beams} x {cfg.lidar.n_azimuth}) -> "
         f"{n_ex} examples of {model.n_sweeps} sweeps in {seconds:.3f} s: "
-        f"{TRAIN_FRAMES * 10 / seconds:.1f} env-steps/s on {card}; K1 launches {k1_n} "
+        f"{frames * 10 / seconds:.1f} env-steps/s on {card}; K1 launches {k1_n} "
         f"(expected {exp_k1}), K2 launches {k2_n} (expected {exp_k2}); route completion "
         f"{float(final.criteria.route_completion[0]):.4f}, speed "
         f"{float(final.ego.speed[0]):.2f} m/s")
     if (k1_n, k2_n) != (exp_k1, exp_k2):
         raise AssertionError(f"the collection launched K1 {k1_n} and K2 {k2_n} times")
-    if n_ex != TRAIN_FRAMES - cfg.model.pred_len - (model.n_sweeps - 1):
+    if n_ex != frames - cfg.model.pred_len - (model.n_sweeps - 1):
         raise AssertionError(f"the chunk gave {n_ex} examples")
     for k, v in batch0.items():
         for x in (v if isinstance(v, tuple) else (v,)):
@@ -1243,22 +1281,24 @@ def ddp_step(cfg, model, batch, device, card, on_card):
         torch.save({"state_dict": start, "batch": to_device(batch, "cpu")}, path)
         if on_card:
             torch.cuda.empty_cache()
+        timed = 1 if on_card else 0            # the rehearsal times no second step
         one = ranks.train_step_rank(None, step_cfg, make_model, make_loss, path, float32=True,
-                                    timed=1, device=device)
+                                    timed=timed, device=device)
         if on_card:
             torch.cuda.empty_cache()
         t0 = time.perf_counter()
         out = spawn(ranks.train_step_rank, DDP_RANKS,
-                    args=(step_cfg, make_model, make_loss, path, True, 1),
+                    args=(step_cfg, make_model, make_loss, path, True, timed),
                     devices=[on] * DDP_RANKS, backend="gloo", timeout=DDP_TIMEOUT)
         wall = time.perf_counter() - t0
+    nan = float("nan")
     a = step_agreement(out, one, start, step_cfg, TRAIN_TOL, GRAD_TOL, GRAD_COS, TRAIN_TOL)
     m, ref = out[0]["metrics"], one["metrics"]
     terms, cos, update = a["terms"], a["cos"], a["update"]
     t, c, u = (max(terms, key=terms.get), min(cos, key=cos.get), max(update, key=update.get))
     per_rank = "; ".join(
-        f"rank {r}: {o['ms']:.1f} ms a step, all-reduce {o['reduce_ms']:.1f} ms, first step "
-        f"{o['first_s']:.2f} s, peak {o['peak_gib'] or float('nan'):.2f} GiB"
+        f"rank {r}: {o['ms'] or nan:.1f} ms a step, all-reduce {o['reduce_ms'] or nan:.1f} ms, "
+        f"first step {o['first_s']:.2f} s, peak {o['peak_gib'] or nan:.2f} GiB"
         for r, o in enumerate(out))
     log(f"[ddp step] student {'student_rl6' if on_card else 'tiny'} in float32, global batch "
         f"{B} ({B // DDP_RANKS} a rank, example 0 mirrored: distil_weight 0 on rank 0 only), "
@@ -1268,7 +1308,7 @@ def ddp_step(cfg, model, batch, device, card, on_card):
         f"{cos[c]:.6f} ({c}); the update within {update[u]:.2e} of each leaf's change by the "
         f"one-process optimizer on the reduced gradient ({u}); against the one-process step's own "
         f"change: {a['direct']:.2e} of a leaf's largest, {a['direct_all']:.2e} of the whole "
-        f"change's norm; ranks equal {a['same']}; {per_rank}; one process {one['ms']:.1f} ms a "
+        f"change's norm; ranks equal {a['same']}; {per_rank}; one process {one['ms'] or nan:.1f} ms a "
         f"step, peak {one['peak_gib'] or float('nan'):.2f} GiB; {wall:.1f} s wall with the "
         f"ranks' start on {card}")
     if a["bad"]:
@@ -1297,7 +1337,8 @@ def expert_recipes(small: bool):
         return grid_config(2), grid_config(2), pc, bcc, build_routes(2), build_routes(4)
     pc = PPOConfig(n_envs=PPO_ENVS, n_steps=PPO_STEPS, n_epochs=4, minibatch=512, lr=3e-5,
                    n_vehicles=48, policy_every=2, anchor_coef=0.05)
-    bcc = BCConfig(n_envs=24, n_steps=256, n_vehicles=96, perturb_prob=0.05)
+    bcc = BCConfig(n_envs=24, n_steps=256, n_vehicles=96, perturb_prob=0.05,
+                   eval_steps=BC_PROBE_TICKS)
     return (grid_config(48), grid_config(96), pc, bcc, build_routes(PPO_ENVS),
             build_routes(BC_ROUTES))
 
@@ -1711,7 +1752,8 @@ def imported_town(cfg, device, small: bool, n_worlds: int):
     through the RasterPlanner, compiles the town at the bench's Town05
     capacities, strict, and writes the town cache; a second town05_cached
     call reads the cache file back. -> (town on `device`, routes (n_worlds,
-    R, 3) numpy, scenarios, the seconds of each step, the compile's counts)."""
+    R, 3) numpy, scenarios, the seconds of each step, the compile's counts,
+    the grid town on the CPU and the town's RasterPlanner)."""
     import tempfile
 
     from thinktwice_tpu_torch.bench import TOWN05_CAPS, town05_world
@@ -1733,7 +1775,7 @@ def imported_town(cfg, device, small: bool, n_worlds: int):
         rasters = grid_town_rasters(grid)
         np.savez(town_path, **rasters)
         t0 = time.perf_counter()
-        raster_planner(town_path, read=read_town_npz)
+        planner = raster_planner(town_path, read=read_town_npz)
         secs["planner"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         lane_routes = generate_random_routes(
@@ -1768,7 +1810,7 @@ def imported_town(cfg, device, small: bool, n_worlds: int):
         ("lane segments", "lane_seg_valid"), ("lights", "tl_valid"), ("spawns", "spawn_valid"))}
     counts.update(routes=len(specs), bank=len(bank), raster=rasters["road"].shape[0],
                   keypoints=sum(len(s.keypoints) for s in specs + bank))
-    return town, routes.cpu().numpy(), scens, secs, counts
+    return town, routes.cpu().numpy(), scens, secs, counts, grid, planner
 
 
 def town_import(cfg, policy, device, card: str, on_card: bool, small: bool,
@@ -1780,7 +1822,8 @@ def town_import(cfg, policy, device, card: str, on_card: bool, small: bool,
     before and read just after; K1 against its plain version on the last
     frame (0 pixels off), its time and bound on these tables; a small
     rollout on the compiled town on the card against the CPU. -> the row's
-    numbers and the town, routes for [reference export]."""
+    numbers; the town, routes for [reference export]; the grid town and
+    the planner for [longest6]."""
     from thinktwice_tpu_torch.ops.birdview_cuda import (
         K1, birdview_bits_cuda, birdview_bits_plain, decode_bits)
     from thinktwice_tpu_torch.ops.raycast_cuda import K2
@@ -1790,7 +1833,8 @@ def town_import(cfg, policy, device, card: str, on_card: bool, small: bool,
     from thinktwice_tpu_torch.sim.reset import reset_world
     from thinktwice_tpu_torch.sim.state import state_to_arrays
 
-    town, routes, scens, secs, counts = imported_town(cfg, device, small, n_worlds)
+    town, routes, scens, secs, counts, grid, planner = imported_town(cfg, device, small,
+                                                                     n_worlds)
     log(f"[town import] grid town of {TOWN_BLOCKS if not small else 2}^2 blocks as an imported "
         f"town ({counts['raster']} px a side at 5 px/m, stopline layer from its stop lines): "
         f"planner {secs['planner']:.2f} s, {counts['routes']} lane-graph routes "
@@ -1872,31 +1916,39 @@ def town_import(cfg, policy, device, card: str, on_card: bool, small: bool,
         del prims, ego, bits_k, bits_p
         town_card_vs_cpu(town, routes, device)
     del final, states0, controls
-    return row, town, routes
+    return row, town, routes, grid, planner
 
 
 def town_card_vs_cpu(town, routes, device):
-    """The route evaluator on the compiled town, TOWN_CPU_WORLDS of its
-    routes for TOWN_CPU_TICKS ticks with the roach_rl6 expert every 2
-    ticks, once on the card and once on the CPU with the same draws: the
-    records must agree as eval_card_vs_cpu holds them."""
+    """The route evaluator on the compiled town, once on the card and once on
+    the CPU with the same draws: the roach_rl6 expert every 2 ticks on one
+    of its routes cut to its first TOWN_CPU_ROUTE_M metres (padded with its
+    last point, as a planned route is), to done or TOWN_CPU_TICKS ticks, so
+    that the route can end Completed on one device and not on the other.
+    The records must agree as eval_card_vs_cpu holds them."""
     from thinktwice_tpu_torch.agents.expert import make_expert_policy
     from thinktwice_tpu_torch.config import bench_config
     from thinktwice_tpu_torch.harness.evaluator import GeneratorDraws
     from thinktwice_tpu_torch.weights import load_roach_policy
 
     cfg = bench_config()
+    n = TOWN_CPU_ROUTE_M + 1                     # points of 1 m
+    short = np.concatenate([routes[0][:n], np.repeat(routes[0][n - 1:n], len(routes[0]) - n, 0)])
     runs = {}
     for dev in (torch.device(device), torch.device("cpu")):
         fn = make_expert_policy(cfg, load_roach_policy(WEIGHTS, cfg, dev))
         runs[dev.type] = run_eval(
-            cfg, town.to(dev), list(routes[:TOWN_CPU_WORLDS]), fn, n_vehicles=8,
-            max_steps=TOWN_CPU_TICKS, worlds_per_batch=TOWN_CPU_WORLDS,
-            segment_steps=TOWN_CPU_TICKS, policy_every=2, draws=GeneratorDraws(6, device="cpu"))
-    (g_d, rec_d, log_d, wall_d), (g_c, rec_c, _, wall_c) = runs[device.type], runs["cpu"]
+            cfg, town.to(dev), [short], fn, n_vehicles=8, max_steps=TOWN_CPU_TICKS,
+            worlds_per_batch=1, segment_steps=TOWN_CPU_SEGMENT, policy_every=2,
+            draws=GeneratorDraws(6, device="cpu"))
+    (g_d, rec_d, log_d, wall_d), (g_c, rec_c, log_c, wall_c) = runs[device.type], runs["cpu"]
     worst = compare_records(rec_d, rec_c, "town card vs cpu")
-    log(f"[town card vs cpu] the expert on the compiled town, {len(rec_d)} routes x "
-        f"{log_d[0]['ticks']} ticks: statuses {[r['status'] for r in rec_d]}, driving score "
+    if log_d[0]["ticks"] != log_c[0]["ticks"]:
+        raise AssertionError("town card vs cpu: the runs took different tick counts")
+    log(f"[town card vs cpu] the expert on the compiled town, 1 route cut to "
+        f"{TOWN_CPU_ROUTE_M} m, to done or {TOWN_CPU_TICKS} ticks: {log_d[0]['ticks']} ticks, "
+        f"status {rec_d[0]['status']!r} on both, route completion "
+        f"{rec_d[0]['scores']['score_route']:.4f}, driving score "
         f"{g_d['scores']['score_composed']:.4f} on {device.type} and "
         f"{g_c['scores']['score_composed']:.4f} on cpu; record floats within {worst:.2e} "
         f"(limit {EVAL_TOL}); {wall_d:.2f} s on {device.type}, {wall_c:.2f} s on cpu")
@@ -2002,6 +2054,150 @@ def reference_export(town, routes, device, card: str, on_card: bool) -> dict:
     return row
 
 
+# --------------------------------------------------------------------------
+# the Longest6 evaluation
+
+
+def longest6_config(small: bool):
+    """The Config that scripts/eval_longest6.py:107-117 builds with
+    --vehicles 500: 508 vehicle slots (8 for scenario actors), 16 walkers,
+    256 lights, 32 stop signs, 3,584-point routes, 8 scenario slots, the
+    courtesy yield on. small: 16 slots, 4 walkers, the rehearsal town's 64
+    lights and 8 stop signs, 1024-point routes."""
+    from thinktwice_tpu_torch.config import Config, SimConfig
+
+    if small:
+        return Config(sim=SimConfig(max_vehicles=16, max_walkers=4, max_lights=64,
+                                    max_stop_signs=8, max_route_len=1024, max_scenarios=8,
+                                    courtesy_yield=True))
+    return Config(sim=SimConfig(max_vehicles=L6_VEHICLES + 8, max_walkers=16, max_lights=256,
+                                max_stop_signs=32, max_route_len=L6_ROUTE_LEN, max_scenarios=8,
+                                courtesy_yield=True))
+
+
+def longest6(town, grid, planner, device, card: str, on_card: bool, small: bool) -> dict:
+    """[longest6]: the path of scripts/eval_longest6.py:107-190 on the
+    imported town of [town import]. The longest L6_WORLDS of the town's
+    lane-graph routes (L6_ROUTE_TRIES tried) written as a route XML, parsed
+    and densified by the RasterPlanner to L6_ROUTE_LEN points, each with
+    derive_map_triggers + build_route_scenarios scenarios; the roach_rl6
+    expert every tick through evaluate_routes with min(500, Town05's 302
+    spawn points) vehicles, the worlds in one batch of L6_SEGMENT-tick
+    segments, stop_penalty 1.0, to done or L6_TICKS ticks, K1's count set to
+    0 just before and read just after. On the card, K1 against its plain
+    version on the last policy call's table (0 pixels off), timed with its
+    bound, and one world's render_birdview_rgb from each version's masks,
+    equal. -> K1's row numbers."""
+    import tempfile
+
+    from thinktwice_tpu_torch.agents import expert as expert_mod
+    from thinktwice_tpu_torch.agents.expert import make_expert_policy
+    from thinktwice_tpu_torch.harness.evaluator import build_route_scenarios, derive_map_triggers
+    from thinktwice_tpu_torch.harness.route_parser import parse_routes_file
+    from thinktwice_tpu_torch.maps.router import generate_random_routes
+    from thinktwice_tpu_torch.maps.town import route_length
+    from thinktwice_tpu_torch.ops.birdview_cuda import (
+        K1, birdview_bits_cuda, birdview_bits_plain, decode_bits)
+    from thinktwice_tpu_torch.ops.raycast_cuda import K2
+    from thinktwice_tpu_torch.sensors.birdview import birdview_inputs, render_birdview_rgb
+    from thinktwice_tpu_torch.weights import load_roach_policy
+
+    cfg = longest6_config(small)
+    R = cfg.sim.max_route_len
+    n_worlds, n_ticks, segment = (2, 8, 4) if small else (L6_WORLDS, L6_TICKS, L6_SEGMENT)
+    n_vehicles = 8 if small else min(L6_VEHICLES, L6_SPAWN_CAP)
+    t0 = time.perf_counter()
+    tries = 20 if small else L6_ROUTE_TRIES
+    pool = generate_random_routes(grid, tries, min_length=100.0, max_length=R - 10.0,
+                                  seed=L6_SEED, max_tries=tries)
+    pool.sort(key=lambda r: -float(np.linalg.norm(np.diff(r[:, :2], axis=0), axis=1).sum()))
+    with tempfile.TemporaryDirectory() as tmp:
+        xml = os.path.join(tmp, "routes_longest6.xml")
+        write_routes_xml(xml, [keypoint_spec(r, f"l6_{i}") for i, r in enumerate(pool[:n_worlds])])
+        specs = parse_routes_file(xml)
+    routes = [s.dense(spacing=1.0, max_len=R, planner=planner) for s in specs]
+    scens = [build_route_scenarios(cfg, r, derive_map_triggers(town, r), device=device)
+             for r in routes]
+    plan_s = time.perf_counter() - t0
+    lengths = [route_length(r) for r in routes]
+    if len(routes) != n_worlds or max(len(r) for r in routes) > R:
+        raise AssertionError(f"[longest6] {len(routes)} routes planned, not {n_worlds}")
+    policy = load_roach_policy(WEIGHTS, cfg, device=device)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    with Spy(expert_mod, "birdview_from_state", keep=1) as rec:
+        K1.launches = K2.launches = 0
+        g, records, blog, wall = run_eval(
+            cfg, town, routes, make_expert_policy(cfg, policy), n_vehicles=n_vehicles,
+            max_steps=n_ticks, worlds_per_batch=n_worlds, segment_steps=segment,
+            stop_penalty=1.0, scenarios=scens, weathers=[s.weather for s in specs], seed=0)
+        k1_n, k2_n = K1.launches, K2.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else float("nan")
+    ticks, seconds = blog[0]["ticks"], blog[0]["seconds"]
+    state = rec.calls[-1][2]
+    slots = state.traffic.active.shape[1]
+    background = int(state.traffic.active[:, :L6_VEHICLES].sum(1).min())
+    expected = ticks if on_card else 0
+    log(f"[longest6] eval_longest6.py's Config on the imported town: {n_worlds} worlds x "
+        f"{slots} vehicle slots, {n_vehicles} vehicles (min({L6_VEHICLES}, Town05's "
+        f"{L6_SPAWN_CAP} spawn points); at the last policy call {background} background "
+        f"vehicles active in every world), {cfg.sim.max_walkers} walkers, "
+        f"{cfg.sim.max_lights} lights, {cfg.sim.max_stop_signs} stop signs, {R}-point routes, "
+        f"{sum(int(sc.kind.gt(0).sum()) if sc is not None else 0 for sc in scens)} map-derived "
+        f"scenarios, stop penalty 1.0; the {n_worlds} longest of {len(pool)} lane-graph routes "
+        f"({', '.join(f'{x:.0f}' for x in lengths)} m) planned in {plan_s:.2f} s")
+    log(f"[longest6] the roach_rl6 expert every tick, 1 batch of {n_worlds} worlds, "
+        f"{segment}-tick segments, at most {n_ticks} ticks: {ticks} ticks run in {seconds:.3f} s "
+        f"({wall:.3f} s with the results file): {n_worlds * ticks / seconds:.1f} env-steps/s on "
+        f"{card}; K1 launches {k1_n} (expected {expected}), K2 launches {k2_n}; peak memory "
+        f"{peak:.2f} GiB")
+    log(f"[longest6] {eval_summary(g, records)}; route completions "
+        f"{[round(r['scores']['score_route'], 2) for r in records]}, statuses "
+        f"{[r['status'] for r in records]}")
+    if k1_n != expected or k2_n != 0 or slots != cfg.sim.max_vehicles:
+        raise AssertionError(f"[longest6] K1 launched {k1_n} and K2 {k2_n} times on {slots} slots")
+    if not small and background != n_vehicles:
+        raise AssertionError(f"[longest6] {background} background vehicles, not {n_vehicles}")
+    if len(records) != n_worlds or not all(
+            np.isfinite(v) for r in records for v in r["scores"].values()):
+        raise AssertionError("[longest6] a route's record is missing or not finite")
+    prims, ego = birdview_inputs(cfg.birdview, town, state)
+    extent = (cfg.sim.ego_extent_x, cfg.sim.ego_extent_y)
+    row = {"launches": k1_n, "rows": prims.shape[1]}
+    if not on_card:
+        rgb = render_birdview_rgb(cfg.birdview, decode_bits(
+            cfg.birdview, birdview_bits_plain(cfg.birdview, prims[:1], ego[:1]))[0], extent)
+        if rgb.shape != (cfg.birdview.width,) * 2 + (3,) or not bool(rgb.isfinite().all()):
+            raise AssertionError("[longest6] the RGB render went wrong")
+        return row
+    bits_k = birdview_bits_cuda(cfg.birdview, prims, ego)
+    bits_p = birdview_bits_plain(cfg.birdview, prims, ego)
+    torch.cuda.synchronize()
+    mism = int((bits_k != bits_p).sum())
+    err = float((decode_bits(cfg.birdview, bits_k) - decode_bits(cfg.birdview, bits_p))
+                .abs().max())
+    rgb_k = render_birdview_rgb(cfg.birdview, decode_bits(cfg.birdview, bits_k[:1])[0], extent)
+    rgb_p = render_birdview_rgb(cfg.birdview, decode_bits(cfg.birdview, bits_p[:1])[0], extent)
+    rgb_equal = bool(torch.equal(rgb_k, rgb_p))
+    log(f"[k1 vs plain, longest6] the last policy call's {slots}-slot table, "
+        f"{tuple(prims.shape)} prims ({-(-prims.shape[1] // 4096)} chunks of 4096 rows): {mism} "
+        f"of {bits_k.numel()} pixels differ, max abs err {err}; world 0's render_birdview_rgb "
+        f"from K1's masks equal to the plain version's: {rgb_equal} "
+        f"({int((rgb_k.sum(-1) > 0).sum())} painted pixels)")
+    if mism or not rgb_equal or int((bits_p != 0).sum()) == 0:
+        raise AssertionError("[longest6] K1 differs from its plain version")
+    ms = cuda_ms(lambda: birdview_bits_cuda(cfg.birdview, prims, ego), reps=20)
+    plain_ms = cuda_ms(lambda: birdview_bits_plain(cfg.birdview, prims, ego), reps=1, warmup=1)
+    bound_ms, bound_by, pairs = k1_bound(cfg.birdview, prims, ego)
+    used = float((prims[..., 1] >= 0).sum()) / prims.shape[0]
+    log(f"[k1 time, longest6] {ms:.4f} ms a launch (plain {plain_ms:.3f} ms, bound "
+        f"{bound_ms:.4f} ms by {bound_by}, {pairs} pixel-primitive pairs; {used:.1f} of "
+        f"{prims.shape[1]} rows a world in use, {n_worlds} worlds) on {card}")
+    row.update(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -2011,6 +2207,7 @@ def main() -> int:
                     help="the student's flax msgpack archive (default: student_rl6)")
     args = ap.parse_args()
 
+    clock = PhaseClock()
     on_card = args.device == "cuda"
     if on_card and not torch.cuda.is_available():
         log("no CUDA device: this smoke test needs an NVIDIA card")
@@ -2053,6 +2250,7 @@ def main() -> int:
             log(f"[build] {name} {os.path.relpath(k.source, REPO)}: {k.build_seconds:.1f} s")
             for line in k.build_log.strip().splitlines():
                 log(f"[build]   {line.strip()}")
+    clock.lap("1-2 card and build")
 
     device = torch.device(args.device)
     policy = load_roach_policy(WEIGHTS, cfg, device=device)
@@ -2089,6 +2287,7 @@ def main() -> int:
         # ---- phase 4: the port on the card against the port on the CPU ----
         policy_cpu = load_roach_policy(WEIGHTS, cfg, device="cpu")
         check_small_reference(cfg, policy_cpu, device)
+    clock.lap("3-4 k1 and small reference")
 
     # ---- phase 5: the Roach rollout, the first main path -------------------
     comp0 = float(states0.criteria.route_completion.mean())
@@ -2131,6 +2330,7 @@ def main() -> int:
         breakdown(cfg, policy, town, final, g)
         k1_row["launches"] = launches
     del town, states0, warm, final, events, controls
+    clock.lap("5 roach rollout")
 
     # ---- phase 6: the route evaluator: card against CPU, then the expert
     # evaluation, the next main path ----------------------------------------
@@ -2138,20 +2338,23 @@ def main() -> int:
     if args.small:
         eval_expert(cfg, policy, device, n_worlds, n_vehicles, card, max_steps=8, segment=4)
     else:
-        eval_expert(cfg, policy, device, n_worlds, n_vehicles, card)
+        eval_expert(cfg, policy, device, n_worlds, n_vehicles, card, max_steps=EVAL_EXPERT_TICKS)
     del policy
     if on_card:
         torch.cuda.empty_cache()
+    clock.lap("6 evaluations")
 
     # ---- phase 7: the ThinkTwice student and its evaluation -----------------
     k2_row = student_phases(args, on_card, device, card)
     if on_card:
         torch.cuda.empty_cache()
+    clock.lap("7 student")
 
     # ---- phase 8: the student's training ----------------------------------
     train = train_phases(args, on_card, device, card, n_vehicles)
     if on_card:
         torch.cuda.empty_cache()
+    clock.lap("8 student training")
 
     # ---- phase 9: the Roach expert's training, the last main path ---------
     k2_before = K2.launches
@@ -2160,6 +2363,7 @@ def main() -> int:
         raise AssertionError("the expert's training launched K2")
     if on_card:
         torch.cuda.empty_cache()
+    clock.lap("9 expert training")
 
     # ---- phase 10: several processes: the dry run, the sharded rollout ------
     ddp_dryrun(on_card, card)
@@ -2167,16 +2371,24 @@ def main() -> int:
                                             n_ticks)
     if on_card:
         torch.cuda.empty_cache()
+    clock.lap("10 several processes")
 
     # ---- phase 11: an imported town, its rollout and the reference export ---
     policy = load_roach_policy(WEIGHTS, cfg, device=device)
-    town_row, town05, town_routes = town_import(cfg, policy, device, card, on_card, args.small,
-                                                n_worlds, n_ticks, n_vehicles)
+    town_row, town05, town_routes, grid6, planner = town_import(
+        cfg, policy, device, card, on_card, args.small, n_worlds, n_ticks, n_vehicles)
     del policy
     export = reference_export(town05, town_routes, device, card, on_card)
+    if on_card:
+        torch.cuda.empty_cache()
+    clock.lap("11 imported town")
+
+    # ---- phase 12: the Longest6 evaluation on the imported town ------------
+    l6_row = longest6(town05, grid6, planner, device, card, on_card, args.small)
     del town05
     if on_card:
         torch.cuda.empty_cache()
+    clock.lap("12 longest6")
 
     if on_card:
         k1_row["train_launches"], k2_row["train_launches"] = train["k1_train"], train["k2_train"]
@@ -2185,22 +2397,28 @@ def main() -> int:
         k2_row["ppo_launches"] = k2_row["bc_launches"] = 0
         k1_row["town_launches"], k2_row["town_launches"] = town_row["launches"], town_row["k2"]
         k1_row["export_launches"], k2_row["export_launches"] = export["k1"], export["k2"]
+        k1_row["longest6_launches"], k2_row["longest6_launches"] = l6_row["launches"], 0
         for k in ("rows", "ms", "plain_ms", "bound_ms", "bound_by"):
             k1_row[f"town_{k}"] = town_row[k]
+        for k in ("rows", "ms", "bound_ms", "bound_by"):
+            k1_row[f"longest6_{k}"] = l6_row[k]
         k1_row["max_abs_err"] = max(k1_row["max_abs_err"], train["k1_err"], expert["err"],
-                                    town_row["err"])
+                                    town_row["err"], l6_row["err"])
         k2_row["max_abs_err"] = max(k2_row["max_abs_err"], train["k2_err"], export["k2_err"])
         keys = ("name", "route", "source", "replaces", "launches", "train_launches",
                 "ppo_launches", "bc_launches", "sharded_launches", "town_launches",
-                "export_launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms")
-        town_keys = ("town_rows", "town_ms", "town_plain_ms", "town_bound_ms", "town_bound_by")
-        log(json.dumps({"kernels": [{k: row[k] for k in keys + (town_keys if row is k1_row else ())}
+                "export_launches", "longest6_launches", "max_abs_err", "ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms")
+        k1_keys = ("town_rows", "town_ms", "town_plain_ms", "town_bound_ms", "town_bound_by",
+                   "longest6_rows", "longest6_ms", "longest6_bound_ms", "longest6_bound_by")
+        log(json.dumps({"kernels": [{k: row[k] for k in keys + (k1_keys if row is k1_row else ())}
                                     for row in (k1_row, k2_row)]}))
+        log(clock.line())
         log(card_line(device))
         device_info = {"platform": "gpu", "kind": kind,
                        "count": torch.cuda.device_count()}
     else:
+        log(clock.line())
         log(card)
         device_info = {"platform": "cpu", "kind": kind, "count": 1}
     print(json.dumps({"ok": True, "device": device_info}), flush=True)

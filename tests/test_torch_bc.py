@@ -86,7 +86,8 @@ def test_discounted_returns_match_numpy():
 
 def test_bc_iterate_and_probe_match_jax():
     (init_j, it_j), (init_t, it_t), tcfg, n_spawn = _make()
-    params_j, opt_j, env_j = init_j(jax.random.key(0))
+    # jitted: one compile of the reference's resets, not one a primitive
+    params_j, opt_j, env_j = jax.jit(init_j)(jax.random.key(0))
     chain = JaxTrainChain("bc", 2, n_spawn)
     chain.start(jax.random.key(0))
     _, opt_t, env_t = init_t(chain)

@@ -140,3 +140,43 @@ def test_cpu_tensors_take_the_plain_version(scene):
     assert k1.K1.launches == before
     with pytest.raises(ValueError, match="CUDA device"):
         k1.birdview_bits_cuda(cfg, prims, ego)
+
+
+def test_plain_cull_drops_no_bit(monkeypatch):
+    """The plain version leaves out of each tile of pixels the rows whose
+    bounds reach none of its pixels: on rows scattered over, outside and
+    across the edges of three worlds' views (segments and turned boxes,
+    wide and thin), the masks equal those of every row tested on every
+    pixel."""
+    cfg = configs()[1].birdview
+    g = torch.Generator().manual_seed(11)
+    ego = k1.ego_table(torch.tensor([[0.0, 0.0], [40.0, -25.0], [-7.0, 90.0]]),
+                       torch.tensor([0.4, -2.1, 3.0]))
+    wx, wy = k1.pixel_world_coords(cfg, ego)
+    centre = torch.stack([wx.mean(1), wy.mean(1)], dim=-1)
+    n = 900
+    a = centre[:, None] + (torch.rand((3, n, 2), generator=g) - 0.5) * 90.0
+    b = a + (torch.rand((3, n, 2), generator=g) - 0.5) * 30.0
+    bits = torch.randint(0, k1.n_bits(cfg), (3, n), generator=g).float()
+    hw = torch.rand((3, n), generator=g) * 3.0 + 0.05
+    valid = torch.rand((3, n), generator=g) > 0.1
+    segs = k1._seg_rows(a, b, hw, bits, valid)
+    yaw = (torch.rand((3, n), generator=g) - 0.5) * 6.28
+    ext = torch.rand((3, n, 2), generator=g) * 6.0 + 0.1
+    boxes = torch.stack([torch.ones_like(yaw), bits, a[..., 0], a[..., 1], torch.cos(yaw),
+                         torch.sin(yaw), ext[..., 0], ext[..., 1]], dim=-1)
+    boxes = torch.where(valid[..., None], boxes, segs)
+    prims = torch.where(torch.rand((3, n, 1), generator=g) > 0.5, segs, boxes)
+    lo_x, hi_x, lo_y, hi_y = k1.row_bounds(prims)
+    x0, x1 = wx.amin(1, keepdim=True), wx.amax(1, keepdim=True)
+    y0, y1 = wy.amin(1, keepdim=True), wy.amax(1, keepdim=True)
+    inside = (lo_x >= x0) & (hi_x <= x1) & (lo_y >= y0) & (hi_y <= y1)
+    outside = (hi_x < x0) | (lo_x > x1) | (hi_y < y0) | (lo_y > y1)
+    culled = k1.birdview_bits_plain(cfg, prims, ego)
+    monkeypatch.setattr(k1, "row_bounds", lambda p: tuple(
+        torch.full(p.shape[:2], v) for v in (-1e9, 1e9, -1e9, 1e9)))
+    full = k1.birdview_bits_plain(cfg, prims, ego)       # no row dropped
+    assert torch.equal(culled, full)
+    assert bool((full != 0).any())
+    for part in (inside, outside, ~inside & ~outside):   # rows inside, outside and across
+        assert bool((valid & part).any(dim=1).all())

@@ -1,6 +1,7 @@
 """PyTorch port on the card: each CUDA kernel against its plain version (K1
 the birdview rasterizer, K2 the ray-vs-box intersector), also on a frame
-collected for training and on a table of an imported town's size, the
+collected for training, on a table of an imported town's size and on one
+at the Longest6 evaluation's 508 vehicle slots, the
 card's world step against the CPU's, one train step of a tiny student,
 and one small PPO and BC iterate of the
 Roach expert (K1 on their rollouts), on the card against the CPU, and a
@@ -378,6 +379,39 @@ def test_k1_on_an_imported_town_table_matches_plain_on_card(card):
     assert int((prims[..., 1] >= 0).sum(dim=1).min()) > 600
     _k1_equal(card, prims, ego)
 
+
+
+def _longest6_table(device):
+    """K1's inputs at the Longest6 evaluation's capacities
+    (scripts/eval_longest6.py with 500 background vehicles: 508 vehicle
+    slots, 16 walkers, 256 lights, 32 stop signs, 3,584-point routes) on
+    the 6 x 6-block grid town: 6 worlds with Town05's 302 vehicles after
+    20 ticks, so that the history ring holds their boxes."""
+    from thinktwice_tpu_torch.maps.procedural import make_grid_town
+    from thinktwice_tpu_torch.rollout import grid_routes
+    from thinktwice_tpu_torch.sim.reset import reset_world
+
+    cfg = Config(sim=SimConfig(max_vehicles=508, max_walkers=16, max_lights=256,
+                               max_stop_signs=32, max_route_len=3584, max_scenarios=8))
+    town = make_grid_town(n_blocks=6, block=100.0, max_lane_pts=16384, max_lights=256,
+                          max_spawn=2048, device=device)
+    g = torch.Generator(device=device).manual_seed(0)
+    state = reset_world(cfg, town, torch.as_tensor(grid_routes(6, 3584), device=device),
+                        n_vehicles=302, generator=g)
+    ctrl = torch.tensor([[0.0, 0.5, 0.0]] * 6, device=device)
+    for _ in range(20):
+        state, _ = step_world(cfg, town, state, ctrl, generator=g)
+    assert state.traffic.active.shape[1] == 508
+    assert int(state.traffic.active.sum(dim=1).min()) == 302
+    return (cfg, *birdview_inputs(cfg.birdview, town, state))
+
+
+@pytest.mark.cuda
+def test_k1_on_a_longest6_table_matches_plain_on_card(card):
+    cfg, prims, ego = _longest6_table(card)
+    boxes = (prims[..., 0] > 0.5) & (prims[..., 1] >= 0)
+    assert int(boxes.sum(dim=1).min()) >= 302 * len(cfg.birdview.history_idx)   # every vehicle drawn
+    _k1_equal(card, prims, ego)
 
 TINY = Config(
     sim=SimConfig(max_vehicles=8, max_walkers=4, max_route_len=256, max_scenarios=4),

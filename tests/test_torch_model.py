@@ -13,6 +13,8 @@ held in tests/test_torch_decoder.py, the whole model in bfloat16 in
 tests/test_torch_model_full.py.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -66,15 +68,16 @@ def assert_close(port, ref, tol=TOL):
 
 def paired(fmod, tmod, *args, seed=0, **kw):
     """Init fmod on args, perturb its params, load them into tmod. ->
-    (variables, flax output)."""
-    variables = fmod.init(jax.random.key(seed), *args, **kw)
+    (variables, flax output). Init and apply run jitted: one trace and one
+    compile each, where op-by-op dispatch compiles every primitive."""
+    variables = jax.jit(functools.partial(fmod.init, **kw))(jax.random.key(seed), *args)
     rng = np.random.default_rng(seed)
     variables = jax.tree.map(
         lambda x: np.asarray(x) + 0.05 * rng.standard_normal(np.shape(x)).astype(np.float32),
         variables)
     tmod.load_state_dict(student_state_dict_from_flax(variables, tmod), strict=True)
     tmod.eval()
-    return variables, fmod.apply(variables, *args, **kw)
+    return variables, jax.jit(functools.partial(fmod.apply, **kw))(variables, *args)
 
 
 def rand(*shape, seed=0, scale=1.0):

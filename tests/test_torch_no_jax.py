@@ -1,46 +1,76 @@
 """The PyTorch port runs without the JAX stack.
 
 A machine with a card may have torch, numpy and the CUDA toolkit and none of
-jax, flax, optax, orbax, msgpack, ninja or triton. In a subprocess where
-those modules (and the JAX package) cannot be imported, every module of
-thinktwice_tpu_torch imports; `python -m thinktwice_tpu_torch.cli evaluate
---device cpu` scores two routes, `cli collect --device cpu` writes a batch
-of 5 frames and `python -m thinktwice_tpu_torch.bench --device cpu` prints
-its record at a tiny size; `python -m thinktwice_tpu_torch.dryrun --nproc 2
---device cpu` takes a step over two gloo ranks, whose processes find the
-same modules blocked; the expert trainers' scripts
-(`scripts.train_roach_ppo` with the fine-tune options, `scripts.train_bc`)
-take two iterations each with --device cpu and write their metrics and a
-params.msgpack the port reads back; and `chip_smoke.py --device cpu
---small` runs to exit 0, the Roach rollout, the tiny student's closed
-loop, the three evaluator phases, the training phases (collection, 3
-steps of loop.train, the archive read back) and the expert's training
-phases (PPO, BC and its probe), the multi-process phases (the dry run,
-the data-parallel step, the sharded rollout) and the imported town's
-phases (the town compiled and cached, its rollout, the reference export)
-included; nothing reaches torch.utils.cpp_extension.
+jax, flax, optax, orbax, msgpack, ninja or triton. These tests run the port
+in new interpreters where those modules (and the JAX package) cannot be
+imported, with torch on one thread; the work is spread over four files,
+since the suite places whole files on its workers:
 
-A second subprocess blocks h5py, PIL and cv2 as well, as the card machine
-lacks them: there the planner is built from a town's rasters, a town is
-compiled from arrays and goes through the town cache, the PNG codec writes
-and reads each of its formats, one world collected on the compiled town is
-exported in the reference's layout and `ReferenceDataset` reads it back
-(images, depth and seg), and only `read_town_h5` fails, on its h5py import.
+- this file: every module of thinktwice_tpu_torch imports, and a spawned
+  process finds the same modules blocked; the imported towns and the
+  reference-format dataset without h5py, PIL and cv2 as well (below); no
+  port source imports the JAX stack;
+- tests/test_torch_no_jax_entry.py: the CLI's `evaluate` and `collect` and
+  the bench with --device cpu;
+- tests/test_torch_no_jax_trainers.py: the expert trainers' scripts and the
+  dry run over two gloo ranks;
+- tests/test_torch_no_jax_smoke.py: `chip_smoke.py --device cpu --small`,
+  whole, to its last line.
+
+Each script ends by printing whether torch.utils.cpp_extension was loaded
+(it must not be).
+
+The second subprocess here blocks h5py, PIL and cv2 as well, as the card
+machine lacks them: there the planner is built from a town's rasters, a
+town is compiled from arrays and goes through the town cache, the PNG codec
+writes and reads each of its formats, one world collected on the compiled
+town is exported in the reference's layout and `ReferenceDataset` reads it
+back (images, depth and seg), and only `read_town_h5` fails, on its h5py
+import.
 """
 
-import json
 import os
 import re
+import resource
 import subprocess
 import sys
+import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKED = ("jax", "flax", "optax", "orbax", "msgpack", "ninja", "triton",
            "thinktwice_tpu")
 
-SCRIPT = f"""
+# every interpreter these tests start, and every process those start, runs
+# torch on one thread: the suite runs its files in parallel workers
+ONE_THREAD = {"OMP_NUM_THREADS": "1"}
+# printed last by every blocked script: nothing reached cpp_extension
+CPP_EXT = 'print("cpp_extension loaded:", "torch.utils.cpp_extension" in sys.modules, flush=True)'
+
+
+def run_blocked(tmp_path, script: str, timeout: float, blocked=BLOCKED):
+    """Run script in a new interpreter whose sitecustomize.py blocks
+    `blocked` (an import of a blocked name raises ImportError), for that
+    interpreter and every process it starts, from the repository's root
+    with one torch thread. Prints the wall and CPU seconds of the process
+    tree (`pytest -s` shows them). -> the completed process, its exit
+    code 0."""
+    (tmp_path / "sitecustomize.py").write_text(
+        f"import sys\nfor name in {blocked!r}:\n    sys.modules[name] = None\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(tmp_path), REPO]), **ONE_THREAD)
+    before = resource.getrusage(resource.RUSAGE_CHILDREN)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+    after = resource.getrusage(resource.RUSAGE_CHILDREN)
+    print(f"[blocked interpreter] wall {time.perf_counter() - t0:.1f} s, user "
+          f"{after.ru_utime - before.ru_utime:.1f} s, sys {after.ru_stime - before.ru_stime:.1f} s")
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    return proc
+
+
+SCRIPT_IMPORTS = f"""
 import sys
-import importlib, multiprocessing, pkgutil, runpy
+import importlib, multiprocessing, pkgutil
 assert all(sys.modules.get(name, 0) is None for name in {BLOCKED!r})
 for name in ("jax", "thinktwice_tpu.config"):     # blocked in a spawned process too
     proc = multiprocessing.get_context("spawn").Process(
@@ -55,45 +85,7 @@ names = [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 print("imported", len(names), "modules", flush=True)
-sys.argv = ["cli", "evaluate", "--device", "cpu", "--n-routes", "2", "--batch", "2",
-            "--vehicles", "2", "--route-len", "64"]
-runpy.run_module("thinktwice_tpu_torch.cli", run_name="__main__")
-import tempfile
-with tempfile.TemporaryDirectory() as tmp:
-    sys.argv = ["cli", "collect", "--device", "cpu", "--frames", "5", "--vehicles", "2",
-                "--route-len", "256", "--out", tmp]
-    runpy.run_module("thinktwice_tpu_torch.cli", run_name="__main__")
-    import torch
-    batch = torch.load(tmp + "/batch.pt", weights_only=True)
-    print("collected batch", tuple(batch["imgs"].shape), flush=True)
-with tempfile.TemporaryDirectory() as tmp:
-    sys.argv = ["train_roach_ppo", "--device", "cpu", "--envs", "2", "--steps", "4",
-                "--iters", "2", "--vehicles", "2", "--minibatch", "8", "--epochs", "1",
-                "--policy-every", "2", "--init", "runs/roach_bc5/params.msgpack",
-                "--anchor", "0.05", "--lr", "3e-5", "--scenarios", "--out", tmp + "/ppo"]
-    runpy.run_module("thinktwice_tpu_torch.scripts.train_roach_ppo", run_name="__main__")
-    sys.argv = ["train_bc", "--device", "cpu", "--envs", "2", "--steps", "8", "--iters", "2",
-                "--vehicles", "2", "--minibatch", "8", "--epochs", "1", "--routes", "4",
-                "--eval-envs", "2", "--eval-steps", "8", "--eval-every", "1", "--scenarios",
-                "--out", tmp + "/bc"]
-    runpy.run_module("thinktwice_tpu_torch.scripts.train_bc", run_name="__main__")
-    from thinktwice_tpu_torch.agents.roach import RoachPolicy
-    from thinktwice_tpu_torch.config import Config
-    from thinktwice_tpu_torch.train.checkpoint import restore_pytree
-    for name in ("ppo", "bc"):
-        lines = open(f"{{tmp}}/{{name}}/metrics.jsonl").read().splitlines()
-        sd = restore_pytree(f"{{tmp}}/{{name}}/params.msgpack", RoachPolicy.from_config(Config()))
-        print("trained", name, len(lines), "lines", len(sd), "tensors", flush=True)
-sys.argv = ["dryrun", "--nproc", "2", "--device", "cpu"]
-from thinktwice_tpu_torch import dryrun
-assert dryrun.main() == 0
-sys.argv = ["bench", "--device", "cpu", "--worlds", "2", "--steps", "4"]
-runpy.run_module("thinktwice_tpu_torch.bench", run_name="__main__")
-sys.argv = ["chip_smoke.py", "--device", "cpu", "--small"]
-try:
-    runpy.run_path("chip_smoke.py", run_name="__main__")
-finally:
-    print("cpp_extension loaded:", "torch.utils.cpp_extension" in sys.modules, flush=True)
+{CPP_EXT}
 """
 
 
@@ -161,54 +153,17 @@ def _port_sources():
     return paths
 
 
-def test_port_and_smoke_run_without_jax_stack(tmp_path):
-    # every interpreter started with this environment, the processes the
-    # port spawns (the dry run's ranks, the smoke's) included, runs this
-    # sitecustomize first: an import of a blocked name raises ImportError
-    (tmp_path / "sitecustomize.py").write_text(
-        f"import sys\nfor name in {BLOCKED!r}:\n    sys.modules[name] = None\n")
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(tmp_path), REPO]))
-    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
-                          capture_output=True, text=True, timeout=600)
-    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+def test_port_imports_without_jax_stack(tmp_path):
+    proc = run_blocked(tmp_path, SCRIPT_IMPORTS, timeout=300)
     lines = proc.stdout.strip().splitlines()
     assert "blocked in a spawned process" in lines
     assert any(line.startswith("imported ") for line in lines)
-    scores = json.loads(proc.stdout[proc.stdout.index("{"):proc.stdout.index("}") + 1])
-    assert set(scores) == {"score_route", "score_penalty", "score_composed"}
-    bench = next(json.loads(line) for line in lines if line.startswith('{"metric"'))
-    assert bench["metric"] == "env_steps_per_sec_2worlds_roach_grid"
-    assert lines[lines.index(json.dumps(bench)) + 1] == "cpu"
-    assert "collected batch (1, 1, 4, 256, 512, 3)" in lines
-    for tag in ("[eval card vs cpu] autopilot", "[eval card vs cpu] expert", "[eval expert]",
-                "[eval student]", "[train collect]", "[train step] 3:", "[train checkpoint]",
-                "[ppo iterate] 0:", "[ppo card vs cpu]", "[bc iterate]", "[bc probe]",
-                "[bc card vs cpu]", "[ddp step]", "[ddp dryrun] frozen",
-                "[worlds sharded] rank 1", "[town import] 2 worlds x 4 ticks",
-                "[reference export] 1 world x 7 frames"):
-        assert any(line.startswith(tag) for line in lines), tag
-    assert any(line.startswith("[rollout] ") for line in lines)
-    assert any(line.startswith("[student] 2 worlds x 4 ticks") for line in lines)
-    assert any(line.startswith("[train checkpoint]") and "bit for bit True" in line
-               for line in lines)
-    assert "trained ppo 2 lines 32 tensors" in lines and "trained bc 2 lines 32 tensors" in lines
-    ppo = [json.loads(line) for line in lines if line.startswith('{"anchor_kl"')]
-    assert [r["iter"] for r in ppo] == [0, 1] and "env_steps" in ppo[0]
-    bc = [json.loads(line) for line in lines if line.startswith('{"action_mae"')]
-    assert [r["iter"] for r in bc] == [0, 1] and "cl_completion" in bc[0]
-    assert sum(line.startswith("dryrun_multigpu OK: 2 ranks, loss=") for line in lines) == 2
-    assert "cpp_extension loaded: False" in lines
-    last = json.loads(lines[-2])
-    assert last == {"ok": True, "device": {"platform": "cpu", "kind": "cpu", "count": 1}}
+    assert lines[-1] == "cpp_extension loaded: False"
 
 
 def test_imported_towns_and_the_dataset_run_without_h5py_pil_cv2(tmp_path):
-    (tmp_path / "sitecustomize.py").write_text(
-        f"import sys\nfor name in {BLOCKED + IMAGE_LIBS!r}:\n    sys.modules[name] = None\n")
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(tmp_path), REPO]))
-    proc = subprocess.run([sys.executable, "-c", SCRIPT_WITHOUT_IMAGE_LIBS], cwd=REPO, env=env,
-                          capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    proc = run_blocked(tmp_path, SCRIPT_WITHOUT_IMAGE_LIBS, timeout=300,
+                       blocked=BLOCKED + IMAGE_LIBS)
     lines = proc.stdout.strip().splitlines()
     assert lines[0].startswith("compiled ") and int(lines[0].split()[1]) > 100
     assert "read_town_h5 needs h5py" in lines

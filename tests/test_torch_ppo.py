@@ -331,6 +331,7 @@ def test_hazard_desired_speed_over_a_phase_cycle():
     tl = np.asarray(jtown.tl_pos)[k]
     pos = np.stack([tl - 8.0 * fwd, tl + 3.0 * fwd]).astype(np.float32)
     seen = set()
+    reference = jax.jit(jax.vmap(lambda s: j_ppo.hazard_desired_speed(jcfg, jtown, s)))
     for t in np.linspace(0.0, float(2 * TL_SLOT_S), 16):
         tick = np.full((2,), round(t / 0.05))
         jst = dataclasses.replace(
@@ -339,7 +340,7 @@ def test_hazard_desired_speed_over_a_phase_cycle():
         tst = dataclasses.replace(
             ts, tick=torch.tensor(tick, dtype=torch.int64),
             ego=dataclasses.replace(ts.ego, pos=torch.tensor(pos), yaw=torch.full((2,), yaw)))
-        want = np.asarray(jax.vmap(lambda s: j_ppo.hazard_desired_speed(jcfg, jtown, s))(jst))
+        want = np.asarray(reference(jst))
         got = ppo.hazard_desired_speed(tcfg, ttown, tst).numpy()
         np.testing.assert_array_equal(got, want)
         assert got[1] == ppo.DESIRED_SPEED
@@ -400,11 +401,12 @@ def test_ppo_iterate_matches_jax():
     kw = dict(n_envs=W, n_steps=8, n_epochs=1, minibatch=8, n_vehicles=4, policy_every=2,
               anchor_coef=0.05)
     pcfg_j, pcfg_t = j_ppo.PPOConfig(**kw), ppo.PPOConfig(**kw)
-    anchor_j, _, _ = j_ppo.make_ppo(jcfg, pcfg_j, jtown, jnp.asarray(routes))[0](
+    # the reference's inits jitted: one compile each, not one a primitive
+    anchor_j, _, _ = jax.jit(j_ppo.make_ppo(jcfg, pcfg_j, jtown, jnp.asarray(routes))[0])(
         jax.random.key(5))
     init_j, it_j = j_ppo.make_ppo(jcfg, pcfg_j, jtown, jnp.asarray(routes), scenarios=jbank,
                                   anchor_params=anchor_j)
-    params_j, opt_j, env_j = init_j(jax.random.key(0))
+    params_j, opt_j, env_j = jax.jit(init_j)(jax.random.key(0))
 
     init_t, it_t = ppo.make_ppo(tcfg, pcfg_t, ttown, routes, scenarios=tbank,
                                 anchor=port_policy(tcfg, anchor_j))

@@ -64,9 +64,11 @@ def _share(a, b):
 def test_cameras_match_jax(worlds):
     jtown, ttown, jstate, tstate = worlds
     jc, tc = JaxCameraConfig(**CAM), CameraConfig(**CAM)
-    ref = jax.vmap(lambda s: jcam.cameras_from_state(jc, jtown, s))(jstate)
+    # jitted, as the JAX package runs its sensors: one compile, not one a primitive
+    ref = jax.jit(jax.vmap(lambda s: jcam.cameras_from_state(jc, jtown, s)))(jstate)
     shape = (tc.n_cams, tc.height, tc.width, 3)
-    noise = jax.vmap(lambda s: jax.random.normal(jax.random.fold_in(s.rng, s.tick), shape))(jstate)
+    noise = jax.jit(jax.vmap(
+        lambda s: jax.random.normal(jax.random.fold_in(s.rng, s.tick), shape)))(jstate)
     out = cam.cameras_from_state(tc, ttown, tstate, rain_noise=torch.as_tensor(np.asarray(noise)))
     sem, rsem = out["semantic"].numpy(), np.asarray(ref["semantic"])
     assert sem.shape == rsem.shape
@@ -92,13 +94,13 @@ def test_lidar_matches_jax(worlds):
     jtown, ttown, jstate, tstate = worlds
     jl, tl = JaxLidarConfig(**LIDAR), LidarConfig(**LIDAR)
     P = tl.n_beams * tl.n_azimuth
-    pts_ref, mask_ref = jax.vmap(lambda s: jlid.lidar_from_state(jl, jtown, s))(jstate)
+    pts_ref, mask_ref = jax.jit(jax.vmap(lambda s: jlid.lidar_from_state(jl, jtown, s)))(jstate)
 
     def draws(s):
         k1, k2 = jax.random.split(jax.random.fold_in(s.rng, s.tick + 7919))
         return jax.random.uniform(k1, (P,)), jax.random.normal(k2, (P, 3))
 
-    keep, jitter = (torch.as_tensor(np.asarray(a)) for a in jax.vmap(draws)(jstate))
+    keep, jitter = (torch.as_tensor(np.asarray(a)) for a in jax.jit(jax.vmap(draws))(jstate))
     pts, mask = lid.lidar_from_state(tl, ttown, tstate, draws=LidarDraws(keep, jitter))
     mask, mask_ref = mask.numpy(), np.asarray(mask_ref)
     assert _share(mask, mask_ref) <= EDGE_SHARE, _share(mask, mask_ref)

@@ -185,3 +185,16 @@ def bench_config() -> Config:
             max_scenarios=8,
         )
     )
+
+
+# The reference's two benchmark presets (route_scenario.py:492-497,
+# statistics_manager.py:27-30).
+def town05_long_config() -> Config:
+    """Town05 Long: 128 vehicle slots, the rest at the defaults."""
+    return Config(sim=SimConfig(max_vehicles=128))
+
+
+def longest6_config() -> Config:
+    """Longest6: 500 background vehicles (512 slots); the stop-sign penalty
+    is waived in scoring (harness.statistics, stop_penalty=1.0)."""
+    return Config(sim=SimConfig(max_vehicles=512))

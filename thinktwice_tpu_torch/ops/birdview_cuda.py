@@ -33,6 +33,7 @@ TL_RED_VALUE = 1.0
 ROW = 8
 TILE_MARGIN_M = 0.05   # cull margin; far above the rounding of pixel coords
 PLAIN_CHUNK = 64       # primitives per step of the plain version
+PLAIN_TILE = 48        # pixels a side of the plain version's tiles
 
 
 def n_bits(cfg: BirdviewConfig) -> int:
@@ -163,45 +164,92 @@ def pixel_world_coords(cfg: BirdviewConfig, ego):
     return wx, wy
 
 
+def row_bounds(prims):
+    """World-space bounds (x0, x1, y0, y1), each (B, NP), that hold every
+    point a row covers: a segment's end points widened by its half width,
+    a box's extents turned by its heading."""
+    seg = prims[..., 0] < 0.5
+    qx, qy, q2, q3, q4, q5 = (prims[..., i] for i in range(2, 8))
+    xb, yb = qx + q2, qy + q3
+    hx = torch.where(seg, q5, q2.abs() * q4 + q3.abs() * q5)
+    hy = torch.where(seg, q5, q3.abs() * q4 + q2.abs() * q5)
+    x0 = torch.where(seg, torch.minimum(qx, xb), qx) - hx
+    x1 = torch.where(seg, torch.maximum(qx, xb), qx) + hx
+    y0 = torch.where(seg, torch.minimum(qy, yb), qy) - hy
+    y1 = torch.where(seg, torch.maximum(qy, yb), qy) + hy
+    return x0, x1, y0, y1
+
+
+def _first(mask, rows):
+    """Each world's rows where mask holds, first and in their order: ->
+    (B, n, ROW) with n the largest count, a world's surplus rows unused."""
+    n = int(mask.sum(dim=1).max())
+    order = torch.argsort((~mask).to(torch.int8), dim=1, stable=True)[:, :n]
+    out = torch.gather(rows, 1, order[..., None].expand(-1, -1, ROW))
+    return torch.where(torch.gather(mask, 1, order)[..., None], out, _unused(out))
+
+
+def _seg_cover(wx, wy, p):
+    """(B, P, C) coverage of pixels (B, P, 1) by segment rows p (B, 1, C, 8):
+    q = x1, y1, abx, aby, denom, half_width."""
+    x1, y1, abx, aby, denom, hw = (p[..., i] for i in range(2, 8))
+    t = ((wx - x1) * abx + (wy - y1) * aby) / denom
+    t = torch.clamp(t, 0.0, 1.0)
+    dx = wx - (x1 + t * abx)
+    dy = wy - (y1 + t * aby)
+    return dx * dx + dy * dy <= hw * hw
+
+
+def _box_cover(wx, wy, p):
+    """(B, P, C) coverage by box rows: q = cx, cy, cos, sin, ex, ey."""
+    cx, cy, c, s, bex, bey = (p[..., i] for i in range(2, 8))
+    rx = wx - cx
+    ry = wy - cy
+    lx = rx * c + ry * s
+    ly = -rx * s + ry * c
+    return (torch.abs(lx) <= bex) & (torch.abs(ly) <= bey)
+
+
 def birdview_bits_plain(cfg: BirdviewConfig, prims, ego, chunk: int = PLAIN_CHUNK):
-    """The plain version of K1: every pixel against every used primitive
-    row, in chunks of rows (no cull: coverage is exact without one). The OR
-    over a chunk runs as a product with the one-hot of each row's bit,
-    which is exact for 0/1 entries. -> (B, W, W) int32."""
-    prims = prims[:, (prims[..., 1] >= 0).any(dim=0)]  # rows used by any world
-    B, NP, _ = prims.shape
+    """The plain version of K1: each PLAIN_TILE x PLAIN_TILE tile of pixels
+    against every used segment row, then every used box row, whose bounds
+    reach the tile (with TILE_MARGIN_M to spare: a row that reaches no
+    pixel's position covers none, so leaving it out changes no bit), in
+    chunks of rows. The OR over a chunk runs as a product with the one-hot
+    of each row's bit, which is exact for 0/1 entries. -> (B, W, W) int32."""
+    B = prims.shape[0]
     W = cfg.width
     nb = n_bits(cfg)
-    wx, wy = pixel_world_coords(cfg, ego)
-    wx, wy = wx[..., None], wy[..., None]                        # (B, P, 1)
+    wx, wy = (a.reshape(B, W, W) for a in pixel_world_coords(cfg, ego))
+    lo_x, hi_x, lo_y, hi_y = row_bounds(prims)
+    used = prims[..., 1] >= 0
+    seg = prims[..., 0] < 0.5
+    m = TILE_MARGIN_M
     bit_ids = torch.arange(nb, device=prims.device, dtype=torch.float32)
-    acc = torch.zeros((B, W * W, nb), dtype=torch.bool, device=prims.device)
-    for k0 in range(0, NP, chunk):
-        p = prims[:, None, k0:k0 + chunk, :]                     # (B, 1, C, 8)
-        kind, bit = p[..., 0], p[..., 1]
-        # segments: q = x1, y1, abx, aby, denom, half_width
-        x1, y1, abx, aby, denom, hw = (p[..., i] for i in range(2, 8))
-        t = ((wx - x1) * abx + (wy - y1) * aby) / denom
-        t = torch.clamp(t, 0.0, 1.0)
-        dx = wx - (x1 + t * abx)
-        dy = wy - (y1 + t * aby)
-        seg_cov = dx * dx + dy * dy <= hw * hw
-        # boxes: q = cx, cy, cos, sin, ex, ey
-        cx, cy, c, s, bex, bey = x1, y1, abx, aby, denom, hw
-        rx = wx - cx
-        ry = wy - cy
-        lx = rx * c + ry * s
-        ly = -rx * s + ry * c
-        box_cov = (torch.abs(lx) <= bex) & (torch.abs(ly) <= bey)
-        cov = torch.where(kind < 0.5, seg_cov, box_cov)          # (B, P, C)
-        onehot = (bit[:, 0, :, None] == bit_ids).to(torch.float32)  # (B, C, nb)
-        acc |= torch.bmm(cov.to(torch.float32), onehot) > 0.5
+    acc = torch.zeros((B, W, W, nb), dtype=torch.bool, device=prims.device)
+    T = PLAIN_TILE
+    for r0 in range(0, W, T):
+        for c0 in range(0, W, T):
+            tx = wx[:, r0:r0 + T, c0:c0 + T].reshape(B, -1)
+            ty = wy[:, r0:r0 + T, c0:c0 + T].reshape(B, -1)
+            reach = (used & (hi_x >= tx.amin(1, keepdim=True) - m)
+                     & (lo_x <= tx.amax(1, keepdim=True) + m)
+                     & (hi_y >= ty.amin(1, keepdim=True) - m)
+                     & (lo_y <= ty.amax(1, keepdim=True) + m))
+            px, py = tx[..., None], ty[..., None]                # (B, P, 1)
+            tile = torch.zeros((B, tx.shape[1], nb), dtype=torch.bool, device=prims.device)
+            for kind, cover in ((seg, _seg_cover), (~seg, _box_cover)):
+                rows = _first(reach & kind, prims)
+                for k0 in range(0, rows.shape[1], chunk):
+                    p = rows[:, None, k0:k0 + chunk, :]          # (B, 1, C, 8)
+                    onehot = (p[:, 0, :, 1, None] == bit_ids).to(torch.float32)  # (B, C, nb)
+                    tile |= torch.bmm(cover(px, py, p).to(torch.float32), onehot) > 0.5
+            acc[:, r0:r0 + T, c0:c0 + T] = tile.reshape(B, -1, min(T, W - c0), nb)
     weights = torch.bitwise_left_shift(
         torch.ones(nb, dtype=torch.int32, device=prims.device),
         torch.arange(nb, dtype=torch.int32, device=prims.device),
     )
-    bits = (acc.to(torch.int32) * weights).sum(dim=-1, dtype=torch.int32)
-    return bits.reshape(B, W, W)
+    return (acc.to(torch.int32) * weights).sum(dim=-1, dtype=torch.int32)
 
 
 # --------------------------------------------------------------------------

@@ -2,8 +2,12 @@
 (counterpart of `thinktwice_tpu/ops/deform_attn.py`).
 
 `value` is channel-fused (B, sum HW, C): head h samples at its own
-locations and keeps its own channel block [h*C/H, (h+1)*C/H). The
-interpolation runs in value's dtype (bfloat16 in the model).
+locations and keeps its own channel block [h*C/H, (h+1)*C/H). The JAX
+package gathers all C channels for every head and keeps each head's block
+with a one-hot mixing product; here each head gathers its own block only
+(an eighth of the gathered bytes at 8 heads), which gives the same numbers:
+the product adds exact zeros to each kept channel. The interpolation runs
+in value's dtype (bfloat16 in the model).
 """
 
 from __future__ import annotations
@@ -22,17 +26,17 @@ def ms_deform_attn(value, spatial_shapes: Sequence[tuple[int, int]],
     Q, n_heads, n_points = (sampling_locations.shape[1], sampling_locations.shape[2],
                             sampling_locations.shape[4])
     head_dim = C // n_heads
-    head_mask = torch.eye(n_heads, dtype=value.dtype, device=value.device)
-    head_mask = head_mask.repeat_interleave(head_dim, dim=1)       # (h, C)
 
-    out = torch.zeros((B, Q, C), dtype=value.dtype, device=value.device)
+    # the heads lead: (B, heads, Q * points, head_dim) stays contiguous
+    out = torch.zeros((B, n_heads, Q, head_dim), dtype=value.dtype, device=value.device)
     start = 0
     for lvl, (H, W) in enumerate(spatial_shapes):
-        v = value[:, start:start + H * W]                          # (B, HW, C)
+        v = (value[:, start:start + H * W].reshape(B, H * W, n_heads, head_dim)
+             .transpose(1, 2).contiguous())                        # (B, h, HW, d)
         start += H * W
-        loc = sampling_locations[:, :, :, lvl]                     # (B, Q, h, P, 2)
-        x = loc[..., 0] * W - 0.5
-        y = loc[..., 1] * H - 0.5
+        loc = sampling_locations[:, :, :, lvl].transpose(1, 2)     # (B, h, Q, P, 2)
+        x = (loc[..., 0] * W - 0.5).reshape(B, n_heads, Q * n_points)
+        y = (loc[..., 1] * H - 0.5).reshape(B, n_heads, Q * n_points)
         x0 = torch.floor(x).to(torch.int64)
         y0 = torch.floor(y).to(torch.int64)
         fx = (x - x0).to(value.dtype)
@@ -40,16 +44,14 @@ def ms_deform_attn(value, spatial_shapes: Sequence[tuple[int, int]],
 
         def tap(xi, yi, v=v, H=H, W=W):
             inb = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)
-            idx = torch.clamp(yi, 0, H - 1) * W + torch.clamp(xi, 0, W - 1)
-            g = torch.gather(v, 1, idx.reshape(B, -1, 1).expand(-1, -1, C))
-            g = g.reshape(B, Q, n_heads, n_points, C)
+            idx = torch.clamp(yi, 0, H - 1) * W + torch.clamp(xi, 0, W - 1)   # (B, h, QP)
+            g = torch.gather(v, 2, idx[..., None].expand(-1, -1, -1, head_dim))
             return torch.where(inb[..., None], g, torch.zeros_like(g))
 
         sampled = (tap(x0, y0) * ((1 - fx) * (1 - fy))[..., None]
                    + tap(x0 + 1, y0) * (fx * (1 - fy))[..., None]
                    + tap(x0, y0 + 1) * ((1 - fx) * fy)[..., None]
-                   + tap(x0 + 1, y0 + 1) * (fx * fy)[..., None])   # (B, Q, h, P, C)
-        w = attention_weights[:, :, :, lvl, :, None]               # (B, Q, h, P, 1)
-        per_head = torch.sum(sampled * w, dim=3)                   # (B, Q, h, C)
-        out = out + torch.einsum("bqhc,hc->bqc", per_head, head_mask)
-    return out
+                   + tap(x0 + 1, y0 + 1) * (fx * fy)[..., None])   # (B, h, QP, d)
+        w = attention_weights[:, :, :, lvl].transpose(1, 2).reshape(B, n_heads, -1, 1)
+        out = out + torch.sum((sampled * w).reshape(B, n_heads, Q, n_points, head_dim), dim=3)
+    return out.transpose(1, 2).reshape(B, Q, C)

@@ -67,14 +67,20 @@ def _guard(d):
 
 def ray_boxes_plain(origins, dirs, table, chunk: int | None = None):
     """The plain version of K2: the slab test of every ray against every
-    box, in chunks of rays so that the (rays x boxes) intermediates stay
-    small (64 MB each by default). origins, dirs (B, R, 3); table (B, N, 9)
-    -> (t (B, R), idx (B, R))."""
+    active box, in chunks of rays so that the (rays x boxes) intermediates
+    stay small (64 MB each by default). An inactive box is hit by no ray,
+    so each world's active boxes are taken first, in their order, and the
+    hit's index mapped back. origins, dirs (B, R, 3); table (B, N, 9) ->
+    (t (B, R), idx (B, R))."""
     B, R, _ = origins.shape
-    chunk = chunk or max(1, PLAIN_PAIRS // max(1, B * table.shape[1]))
+    active = table[..., 7] > 0.5
+    n = int(active.sum(dim=1).max()) if table.shape[1] else 0
+    order = torch.argsort((~active).to(torch.int8), dim=1, stable=True)[:, :n]
+    table = torch.gather(table, 1, order[..., None].expand(-1, -1, ROW))
+    chunk = chunk or max(1, PLAIN_PAIRS // max(1, B * n))
     t_out = torch.full((B, R), MAX_T, dtype=torch.float32, device=origins.device)
     idx_out = torch.full((B, R), -1, dtype=torch.int64, device=origins.device)
-    if table.shape[1] == 0:
+    if n == 0:
         return t_out, idx_out
     bx, by, c, s, ex, ey, hz, act, z0 = (table[:, None, :, i] for i in range(ROW))
     for r0 in range(0, R, chunk):
@@ -101,7 +107,7 @@ def ray_boxes_plain(origins, dirs, table, chunk: int | None = None):
                             torch.full_like(t_near, MAX_T))
         t_min, idx = torch.min(t_hit, dim=-1)   # the first minimum: lowest index
         t_out[:, r0:r0 + chunk] = t_min
-        idx_out[:, r0:r0 + chunk] = torch.where(t_min < MAX_T, idx,
+        idx_out[:, r0:r0 + chunk] = torch.where(t_min < MAX_T, torch.gather(order, 1, idx),
                                                 torch.full_like(idx, -1))
     return t_out, idx_out
 

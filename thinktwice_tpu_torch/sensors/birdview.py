@@ -35,6 +35,7 @@ STOP_RADIUS_M = 30.0       # stop signs paint while the ego is this near
 __all__ = [
     "LANE_BROKEN_VALUE", "TL_GREEN_VALUE", "TL_YELLOW_VALUE", "TL_RED_VALUE",
     "birdview_inputs", "birdview_bits_from_state", "birdview_from_state",
+    "render_birdview_rgb",
 ]
 
 
@@ -76,3 +77,36 @@ def birdview_bits_from_state(cfg: BirdviewConfig, town: TownMap,
 def birdview_from_state(cfg: BirdviewConfig, town: TownMap, state: WorldState):
     """(B, 15, W, W) float observation of every world through K1."""
     return decode_bits(cfg, birdview_bits_from_state(cfg, town, state))
+
+
+def render_birdview_rgb(cfg: BirdviewConfig, masks, ego_extent=None):
+    """The ObsManager's debug RGB image composed from the channel stack
+    (chauffeurnet.py:143-166 'rendered', the history tints faded). masks
+    (..., C, W, W) in [0, 1] -> (..., W, W, 3) float32 RGB in [0, 1]; with
+    ego_extent (half-length, half-width in m), the ego box in white at the
+    canonical position."""
+    W = cfg.width
+    img = torch.zeros(masks.shape[:-3] + (W, W, 3), device=masks.device)
+
+    def paint(img, mask, color, alpha=1.0):
+        c = torch.tensor(color, dtype=torch.float32, device=masks.device) / 255.0
+        return torch.where(mask[..., None] > 0.1, c * alpha, img)
+
+    img = paint(img, masks[..., 0, :, :], (83, 87, 83))         # road (ALUMINIUM_5)
+    img = paint(img, masks[..., 1, :, :], (136, 138, 133))      # route (ALUMINIUM_3)
+    img = paint(img, masks[..., 2, :, :], (255, 0, 255))        # lanes (MAGENTA)
+    n_hist = len(cfg.history_idx)
+    for i in range(n_hist):
+        fade = 1.0 - 0.2 * (n_hist - 1 - i)
+        img = paint(img, masks[..., 3 + i, :, :], (0, 0, 255), fade)             # vehicles
+        img = paint(img, masks[..., 3 + n_hist + i, :, :], (0, 255, 255), fade)  # walkers
+        tl = masks[..., 3 + 2 * n_hist + i, :, :]
+        img = paint(img, (tl > 0.25) & (tl < 0.4), (0, 255, 0), fade)      # green
+        img = paint(img, (tl > 0.6) & (tl < 0.75), (255, 255, 0), fade)    # yellow
+        img = paint(img, tl > 0.9, (255, 0, 0), fade)                      # red
+    if ego_extent is not None:
+        r0 = W - cfg.pixels_ev_to_bottom
+        ex = int(float(ego_extent[0]) * cfg.pixels_per_meter)
+        ey = int(float(ego_extent[1]) * cfg.pixels_per_meter)
+        img[..., r0 - ex:r0 + ex, W // 2 - ey:W // 2 + ey, :] = 1.0
+    return img

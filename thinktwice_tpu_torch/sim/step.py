@@ -288,3 +288,21 @@ def step_world(cfg: Config, town: TownMap, state: WorldState, control,
     frozen = dataclasses.replace(frozen, tick=new_state.tick)
     events = tree_map(lambda e: e & ~done, events)
     return frozen, events
+
+
+def rollout(cfg: Config, town: TownMap, state: WorldState, policy_fn, n_steps: int,
+            draws: list[StepDraws] | None = None,
+            generator: torch.Generator | None = None):
+    """A closed-loop rollout of n_steps ticks: policy_fn(cfg, town, state) ->
+    (B, 3) control, then step_world, every tick. draws, when given, holds
+    each tick's StepDraws; else they come from `generator`. Returns (final
+    state, Events of (n_steps, B) tensors), stacked on the tick axis as the
+    JAX package's scan stacks them."""
+    events = []
+    for t in range(n_steps):
+        ctrl = policy_fn(cfg, town, state)
+        state, ev = step_world(cfg, town, state, ctrl,
+                               draws=None if draws is None else draws[t],
+                               generator=generator)
+        events.append(ev)
+    return state, tree_map(lambda *xs: torch.stack(xs), *events)
