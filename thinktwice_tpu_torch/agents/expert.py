@@ -21,6 +21,7 @@ from typing import Any
 
 import torch
 
+from thinktwice_tpu_torch import tracing
 from thinktwice_tpu_torch.agents.autopilot import junction_yield, red_sign_caps
 from thinktwice_tpu_torch.agents.roach import RoachPolicy, acc_to_control, beta_mode
 from thinktwice_tpu_torch.config import Config
@@ -106,41 +107,45 @@ def expert_control(cfg: Config, policy: RoachPolicy, town: TownMap,
                    state: WorldState) -> tuple[torch.Tensor, dict[str, Any]]:
     """One policy evaluation of every world -> (control (B, 3), supervision
     dict)."""
-    obs = birdview_from_state(cfg.birdview, town, state)
-    sv = state_vector(state)
-    out = policy(obs, sv)
-    action = beta_mode(out["alpha"], out["beta"])            # (B, 2)
-    control = acc_to_control(action)                         # (B, 3)
+    with tracing.span("expert_control"):
+        with tracing.span("expert_control.birdview"):
+            obs = birdview_from_state(cfg.birdview, town, state)
+        with tracing.span("expert_control.policy"):
+            sv = state_vector(state)
+            out = policy(obs, sv)
+            action = beta_mode(out["alpha"], out["beta"])            # (B, 2)
+            control = acc_to_control(action)                         # (B, 3)
 
-    brake_now = hazard_brake(cfg, state, stopped_cone=True)
-    # red-light / stop-sign / junction-yield rule brakes on the stop-line
-    # geometry the criteria charge
-    v_red, d_red, v_sign, d_sign = red_sign_caps(cfg, town, state)
-    spd = state.ego.speed
-    brake_red = ((d_red < 30.0) & (spd > v_red + 0.5)) | (d_red < 4.5)
-    brake_sign = ((d_sign < 12.0) & (spd > v_sign + 0.5)) | (v_sign < 0.2)
-    v_yield, d_conf, w_arc = junction_yield(cfg, town, state)
-    brake_yield = (((d_conf < w_arc - 1.0) & (spd > v_yield + 0.5))
-                   | (d_conf < 4.0))
-    brake_now = brake_now | brake_red | brake_sign | brake_yield
-    only_ap_brake = brake_now & (control[:, 2] < 0.5)
-    braked = torch.stack(
-        [control[:, 0], torch.zeros_like(spd), torch.ones_like(spd)], dim=-1
-    )
-    control = torch.where(brake_now[:, None], braked, control)
+        with tracing.span("expert_control.brakes"):
+            brake_now = hazard_brake(cfg, state, stopped_cone=True)
+            # red-light / stop-sign / junction-yield rule brakes on the stop-line
+            # geometry the criteria charge
+            v_red, d_red, v_sign, d_sign = red_sign_caps(cfg, town, state)
+            spd = state.ego.speed
+            brake_red = ((d_red < 30.0) & (spd > v_red + 0.5)) | (d_red < 4.5)
+            brake_sign = ((d_sign < 12.0) & (spd > v_sign + 0.5)) | (v_sign < 0.2)
+            v_yield, d_conf, w_arc = junction_yield(cfg, town, state)
+            brake_yield = (((d_conf < w_arc - 1.0) & (spd > v_yield + 0.5))
+                           | (d_conf < 4.0))
+            brake_now = brake_now | brake_red | brake_sign | brake_yield
+            only_ap_brake = brake_now & (control[:, 2] < 0.5)
+            braked = torch.stack(
+                [control[:, 0], torch.zeros_like(spd), torch.ones_like(spd)], dim=-1
+            )
+            control = torch.where(brake_now[:, None], braked, control)
 
-    supervision = {
-        "action": action,
-        "alpha": out["alpha"],
-        "beta": out["beta"],
-        "value": out["value"][:, 0],
-        "features": out["features"],
-        "cnn_features": tuple(out["cnn_features"][2:]),
-        "only_ap_brake": only_ap_brake,
-        "birdview": obs,
-        "state_vec": sv,
-    }
-    return control, supervision
+        supervision = {
+            "action": action,
+            "alpha": out["alpha"],
+            "beta": out["beta"],
+            "value": out["value"][:, 0],
+            "features": out["features"],
+            "cnn_features": tuple(out["cnn_features"][2:]),
+            "only_ap_brake": only_ap_brake,
+            "birdview": obs,
+            "state_vec": sv,
+        }
+        return control, supervision
 
 
 def make_expert_policy(cfg: Config, policy: RoachPolicy):

@@ -27,6 +27,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from thinktwice_tpu_torch import tracing
 from thinktwice_tpu_torch.config import ModelConfig
 from thinktwice_tpu_torch.models.layers import (
     MLP,
@@ -268,30 +269,31 @@ class DecoderLayer(nn.Module):
     def forward(self, bev32, wp, ctrl, prev_future, measurement, flat_feat,
                 ego2img, fpn_value, spatial_shapes, temporal_emb, static_emb,
                 pyramid, ida=None):
-        B, T = wp.shape[:2]
-        ctrl_sp = F.softplus(ctrl)
-        future = self.prediction(bev32, wp, ctrl_sp, prev_future)
-        flat_future, _ = pyramid(future.reshape(B * T, *future.shape[2:]))
-        flat_future = flat_future.reshape(B, T, -1)
-        look = self.look(wp, ctrl_sp, measurement, flat_feat, ego2img, fpn_value,
-                         spatial_shapes, temporal_emb, static_emb, ida)
-        dt = flat_future.dtype
-        x = torch.cat([flat_future, look.to(dt),
-                       temporal_emb[None].expand(B, T, -1).to(dt),
-                       measurement[:, None, :].expand(B, T, -1).to(dt)], dim=-1)
-        x = self.MLP_0(self.LayerNorm_0(x))
-        # offset heads in float32: small residuals on the float32 state
-        traj_offset = self.MLP_1(torch.cat([wp, x.float()], dim=-1))
-        ctrl_offset = self.MLP_2(torch.cat([ctrl, x.float()], dim=-1))
+        with tracing.span("student_forward.refine"):
+            B, T = wp.shape[:2]
+            ctrl_sp = F.softplus(ctrl)
+            future = self.prediction(bev32, wp, ctrl_sp, prev_future)
+            flat_future, _ = pyramid(future.reshape(B * T, *future.shape[2:]))
+            flat_future = flat_future.reshape(B, T, -1)
+            look = self.look(wp, ctrl_sp, measurement, flat_feat, ego2img, fpn_value,
+                             spatial_shapes, temporal_emb, static_emb, ida)
+            dt = flat_future.dtype
+            x = torch.cat([flat_future, look.to(dt),
+                           temporal_emb[None].expand(B, T, -1).to(dt),
+                           measurement[:, None, :].expand(B, T, -1).to(dt)], dim=-1)
+            x = self.MLP_0(self.LayerNorm_0(x))
+            # offset heads in float32: small residuals on the float32 state
+            traj_offset = self.MLP_1(torch.cat([wp, x.float()], dim=-1))
+            ctrl_offset = self.MLP_2(torch.cat([ctrl, x.float()], dim=-1))
 
-        xf = x.reshape(B, T * 512)
-        Hh, Ww = bev32.shape[-2:]
-        bev_in = torch.cat([bev32.to(xf.dtype),
-                            xf[:, :, None, None].expand(B, T * 512, Hh, Ww)], dim=1)
-        new_bev = self.Conv_1(F.relu(self.Conv_0(bev_in))) + bev32
-        new_flat = self.MLP_3(torch.cat([flat_feat, xf.to(flat_feat.dtype)], dim=-1)) \
-            + flat_feat
-        return traj_offset, ctrl_offset, future, new_bev, new_flat
+            xf = x.reshape(B, T * 512)
+            Hh, Ww = bev32.shape[-2:]
+            bev_in = torch.cat([bev32.to(xf.dtype),
+                                xf[:, :, None, None].expand(B, T * 512, Hh, Ww)], dim=1)
+            new_bev = self.Conv_1(F.relu(self.Conv_0(bev_in))) + bev32
+            new_flat = self.MLP_3(torch.cat([flat_feat, xf.to(flat_feat.dtype)], dim=-1)) \
+                + flat_feat
+            return traj_offset, ctrl_offset, future, new_bev, new_flat
 
 
 class ThinkTwiceDecoder(nn.Module):

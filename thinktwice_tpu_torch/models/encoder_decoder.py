@@ -23,6 +23,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from thinktwice_tpu_torch import tracing
 from thinktwice_tpu_torch.config import ModelConfig
 from thinktwice_tpu_torch.models.decoder import BEVPyramid, ThinkTwiceDecoder
 from thinktwice_tpu_torch.models.layers import MLP, Conv, ConvGN, SEBasicBlock
@@ -79,52 +80,59 @@ class ThinkTwiceModel(nn.Module):
         teacher_wp (B, T, 2) and teacher_ctrl_sp (B, T, 4) (teacher forcing),
         sweep2key (B, T, 4, 4), ida (B, N, 4, 4). -> dict of float32
         outputs."""
-        B, N = imgs.shape[0], cam2ego.shape[0]
-        cam_out = self.img_encoder(imgs, cam2ego, intrinsics, sweep2key=sweep2key,
-                                   ida=ida)
-        cam_bev = bev_to_bird(cam_out["bev"]).to(BF16)         # (B, C, 21, 21)
+        with tracing.span("student_forward"):
+            B, N = imgs.shape[0], cam2ego.shape[0]
+            with tracing.span("student_forward.trunk"):
+                cam_out = self.img_encoder(imgs, cam2ego, intrinsics, sweep2key=sweep2key,
+                                           ida=ida)
+            with tracing.span("student_forward.lidar"):
+                lid = bev_to_bird(self.lidar_encoder(points, points_mask))  # (B, 512, 84, 84)
+                pts_red = self.ConvGN_3(self.ConvGN_2(lid))
 
-        state = torch.cat([speed[:, None], target_point, command], dim=-1)
-        measurement = self.measurements_encoder(state)
+            with tracing.span("student_forward.fusion"):
+                cam_bev = bev_to_bird(cam_out["bev"]).to(BF16)         # (B, C, 21, 21)
+                state = torch.cat([speed[:, None], target_point, command], dim=-1)
+                measurement = self.measurements_encoder(state)
 
-        cam_red = F.relu(self.ConvGN_1(self.ConvGN_0(cam_bev)) + cam_bev)
-        lid = bev_to_bird(self.lidar_encoder(points, points_mask))  # (B, 512, 84, 84)
-        pts_red = self.ConvGN_3(self.ConvGN_2(lid))
-        f = self.ConvGN_4(self.ConvGN_5(torch.cat([cam_red, pts_red], dim=1)))
-        bev_feats = F.relu(f + cam_red + pts_red)
+                cam_red = F.relu(self.ConvGN_1(self.ConvGN_0(cam_bev)) + cam_bev)
+                f = self.ConvGN_4(self.ConvGN_5(torch.cat([cam_red, pts_red], dim=1)))
+                bev_feats = F.relu(f + cam_red + pts_red)
 
-        grid32 = self.MLP21(F.relu(self._256_to_32(bev_feats))).float()
-        flat_feat, mids = self.bev_pyramid(grid32)
-        flat_feat = flat_feat.float()
+                grid32 = self.MLP21(F.relu(self._256_to_32(bev_feats))).float()
+                flat_feat, mids = self.bev_pyramid(grid32)
+                flat_feat = flat_feat.float()
 
-        fpn = cam_out["fpn_feats"]
-        spatial_shapes = tuple(tuple(f.shape[-2:]) for f in fpn)
-        maps, flat_vals = [], []
-        for lvl, f in enumerate(fpn):
-            f = getattr(self, f"fpn_linear{lvl}")(f)           # (B*N, 256, h, w) bf16
-            h, w = f.shape[-2:]
-            f = f.reshape(B, N, FPN_CHANNELS, h, w).permute(0, 1, 3, 4, 2)
-            maps.append(f)                                     # (B, N, h, w, 256)
-            fv = (f.reshape(B, N, h * w, FPN_CHANNELS)
-                  + self.cams_embeds[None, :, None, :].to(BF16)
-                  + self.level_embeds[None, None, None, lvl].to(BF16))
-            flat_vals.append(fv)
-        value_cams = torch.cat(flat_vals, dim=2).transpose(0, 1)   # (N, B, sumHW, 256)
-        fpn_value = {"maps": maps, "flat": value_cams}
+                fpn = cam_out["fpn_feats"]
+                spatial_shapes = tuple(tuple(f.shape[-2:]) for f in fpn)
+                maps, flat_vals = [], []
+                for lvl, f in enumerate(fpn):
+                    f = getattr(self, f"fpn_linear{lvl}")(f)           # (B*N, 256, h, w) bf16
+                    h, w = f.shape[-2:]
+                    f = f.reshape(B, N, FPN_CHANNELS, h, w).permute(0, 1, 3, 4, 2)
+                    maps.append(f)                                     # (B, N, h, w, 256)
+                    fv = (f.reshape(B, N, h * w, FPN_CHANNELS)
+                          + self.cams_embeds[None, :, None, :].to(BF16)
+                          + self.level_embeds[None, None, None, lvl].to(BF16))
+                    flat_vals.append(fv)
+                value_cams = torch.cat(flat_vals, dim=2).transpose(0, 1)   # (N, B, sumHW, 256)
+                fpn_value = {"maps": maps, "flat": value_cams}
 
-        outs = self.decoder(flat_feat, grid32, measurement, ego2img, fpn_value,
-                            spatial_shapes, self.bev_pyramid, teacher_wp=teacher_wp,
-                            teacher_ctrl_sp=teacher_ctrl_sp, ida=ida)
-        # maps leave in the JAX package's channels-last layout
-        outs["depth"] = cam_out["depth"].permute(0, 2, 3, 1)
-        outs["seg"] = cam_out["seg"].permute(0, 2, 3, 1)
-        for key in BEV_STACKS:
-            if key in outs:
-                outs[key] = outs[key].movedim(-3, -1)
-        outs["mid_feature"] = tuple(m.float().permute(0, 2, 3, 1) for m in mids)
-        outs["measurement"] = measurement
-        return {k: (v.float() if torch.is_tensor(v) and v.dtype == BF16 else v)
-                for k, v in outs.items()}
+            with tracing.span("student_forward.decoder"):
+                outs = self.decoder(flat_feat, grid32, measurement, ego2img, fpn_value,
+                                    spatial_shapes, self.bev_pyramid, teacher_wp=teacher_wp,
+                                    teacher_ctrl_sp=teacher_ctrl_sp, ida=ida)
+            # the fusion's second call: maps leave in the JAX package's
+            # channels-last layout, every output in float32
+            with tracing.span("student_forward.fusion"):
+                outs["depth"] = cam_out["depth"].permute(0, 2, 3, 1)
+                outs["seg"] = cam_out["seg"].permute(0, 2, 3, 1)
+                for key in BEV_STACKS:
+                    if key in outs:
+                        outs[key] = outs[key].movedim(-3, -1)
+                outs["mid_feature"] = tuple(m.float().permute(0, 2, 3, 1) for m in mids)
+                outs["measurement"] = measurement
+                return {k: (v.float() if torch.is_tensor(v) and v.dtype == BF16 else v)
+                        for k, v in outs.items()}
 
 
 # --------------------------------------------------------------------------

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from thinktwice_tpu_torch import tracing
 from thinktwice_tpu_torch.config import CameraConfig
 from thinktwice_tpu_torch.maps.town import TownMap, traffic_light_states
 from thinktwice_tpu_torch.models import rig as rig_lib
@@ -156,13 +157,14 @@ def cameras_from_state(cfg: CameraConfig, town: TownMap, state,
                        rain_noise=None, generator=None):
     """The cameras of every world of a WorldState, with the live light
     phases and each world's weather."""
-    veh_pose = box_pose_from_state(state.traffic.pos, state.traffic.yaw,
-                                   state.traffic.extent, VEHICLE_HEIGHT)
-    wlk_pose = box_pose_from_state(state.walkers.pos, state.walkers.yaw,
-                                   state.walkers.extent, WALKER_HEIGHT)
-    return render_cameras(
-        cfg, town, state.ego.pos, state.ego.yaw,
-        veh_pose, state.traffic.active, wlk_pose, state.walkers.active,
-        tl_states=traffic_light_states(town, state.time_s),
-        weather=state.weather, rain_noise=rain_noise, generator=generator,
-    )
+    with tracing.span("cameras_from_state"):
+        veh_pose = box_pose_from_state(state.traffic.pos, state.traffic.yaw,
+                                       state.traffic.extent, VEHICLE_HEIGHT)
+        wlk_pose = box_pose_from_state(state.walkers.pos, state.walkers.yaw,
+                                       state.walkers.extent, WALKER_HEIGHT)
+        return render_cameras(
+            cfg, town, state.ego.pos, state.ego.yaw,
+            veh_pose, state.traffic.active, wlk_pose, state.walkers.active,
+            tl_states=traffic_light_states(town, state.time_s),
+            weather=state.weather, rain_noise=rain_noise, generator=generator,
+        )

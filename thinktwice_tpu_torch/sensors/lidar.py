@@ -13,6 +13,7 @@ import math
 
 import torch
 
+from thinktwice_tpu_torch import tracing
 from thinktwice_tpu_torch.config import LidarConfig
 from thinktwice_tpu_torch.maps.town import TownMap
 from thinktwice_tpu_torch.sensors.raycast import (
@@ -86,22 +87,23 @@ def lidar_from_state(cfg: LidarConfig, town: TownMap, state,
                      generator: torch.Generator | None = None):
     """The lidar of every world of a WorldState, with each world's rain
     dropping returns and its wetness jittering ranges."""
-    veh_pose = box_pose_from_state(state.traffic.pos, state.traffic.yaw,
-                                   state.traffic.extent, VEHICLE_HEIGHT)
-    wlk_pose = box_pose_from_state(state.walkers.pos, state.walkers.yaw,
-                                   state.walkers.extent, WALKER_HEIGHT)
-    points, mask = render_lidar(cfg, town, state.ego.pos, state.ego.yaw,
-                                veh_pose, state.traffic.active, wlk_pose,
-                                state.walkers.active)
-    if draws is None:
-        draws = sample_lidar_draws(cfg, points.shape[0], points.device, generator)
-    rain = state.weather[:, W_RAIN, None] / 100.0
-    wet = state.weather[:, W_WETNESS, None, None] / 100.0
-    mask = mask & (draws.keep_uniform > 0.25 * rain)
-    jitter = 0.03 * wet * draws.jitter_normal
-    xyz = points[..., :3] + torch.where(mask[..., None], jitter, torch.zeros_like(jitter))
-    points = torch.cat([xyz, points[..., 3:]], dim=-1)
-    return torch.where(mask[..., None], points, torch.zeros_like(points)), mask
+    with tracing.span("lidar_from_state"):
+        veh_pose = box_pose_from_state(state.traffic.pos, state.traffic.yaw,
+                                       state.traffic.extent, VEHICLE_HEIGHT)
+        wlk_pose = box_pose_from_state(state.walkers.pos, state.walkers.yaw,
+                                       state.walkers.extent, WALKER_HEIGHT)
+        points, mask = render_lidar(cfg, town, state.ego.pos, state.ego.yaw,
+                                    veh_pose, state.traffic.active, wlk_pose,
+                                    state.walkers.active)
+        if draws is None:
+            draws = sample_lidar_draws(cfg, points.shape[0], points.device, generator)
+        rain = state.weather[:, W_RAIN, None] / 100.0
+        wet = state.weather[:, W_WETNESS, None, None] / 100.0
+        mask = mask & (draws.keep_uniform > 0.25 * rain)
+        jitter = 0.03 * wet * draws.jitter_normal
+        xyz = points[..., :3] + torch.where(mask[..., None], jitter, torch.zeros_like(jitter))
+        points = torch.cat([xyz, points[..., 3:]], dim=-1)
+        return torch.where(mask[..., None], points, torch.zeros_like(points)), mask
 
 
 def merge_sweeps(points_now, mask_now, points_prev, mask_prev, ego_now, ego_prev):

@@ -16,6 +16,7 @@ import dataclasses
 
 import torch
 
+from thinktwice_tpu_torch import tracing
 from thinktwice_tpu_torch.config import Config
 from thinktwice_tpu_torch.maps.town import TownMap, traffic_light_states
 from thinktwice_tpu_torch.sim import scenarios as scen_lib
@@ -138,156 +139,161 @@ def step_world(cfg: Config, town: TownMap, state: WorldState, control,
                generator: torch.Generator | None = None):
     """Advance every world one tick. control (B, 3) = (steer, throttle,
     brake). Returns (WorldState', Events)."""
-    sim = cfg.sim
-    if draws is None:
-        draws = sample_step_draws(town, state, generator)
-    dev = state.tick.device
-    ego0 = state.ego
+    with tracing.span("step_world"):
+        sim = cfg.sim
+        if draws is None:
+            draws = sample_step_draws(town, state, generator)
+        dev = state.tick.device
+        ego0 = state.ego
 
-    t = state.time_s
-    tl_states = traffic_light_states(town, t)
+        with tracing.span("step_world.scenarios"):
+            t = state.time_s
+            tl_states = traffic_light_states(town, t)
 
-    # --- scenarios (inject walkers/vehicles, overrides, ego steer noise) --
-    (scen, walkers, tr, steer_noise, scripted_mask,
-     scripted_speed) = scen_lib.step_scenarios(
-        cfg, state.scenario, ego0.pos, state.walkers, state.traffic,
-        draws.steer_normal, sim.dt, ego_speed=ego0.speed,
-    )
-    # light-manipulator slots pin nearby aligned lights; every consumer of
-    # this tick's tl_states sees the override
-    tl_over = scen_lib.scenario_tl_override(
-        scen, town.tl_pos, town.tl_yaw, town.tl_valid
-    )
-    tl_states = torch.where(tl_over >= 0, tl_over, tl_states)
+            # --- scenarios (inject walkers/vehicles, overrides, ego steer noise) --
+            (scen, walkers, tr, steer_noise, scripted_mask,
+             scripted_speed) = scen_lib.step_scenarios(
+                cfg, state.scenario, ego0.pos, state.walkers, state.traffic,
+                draws.steer_normal, sim.dt, ego_speed=ego0.speed,
+            )
+            # light-manipulator slots pin nearby aligned lights; every consumer of
+            # this tick's tl_states sees the override
+            tl_over = scen_lib.scenario_tl_override(
+                scen, town.tl_pos, town.tl_yaw, town.tl_valid
+            )
+            tl_states = torch.where(tl_over >= 0, tl_over, tl_states)
 
-    # --- ego integration ----------------------------------------------------
-    steer = torch.clamp(control[:, 0] + steer_noise, -1.0, 1.0)
-    throttle = torch.clamp(control[:, 1], 0.0, 1.0)
-    brake = control[:, 2]
-    e_pos, e_yaw, e_speed = bicycle_step(
-        sim, ego0.pos, ego0.yaw, ego0.speed, steer, throttle, brake,
-        drag=sim.drag,
-    )
-    ego = EgoState(
-        pos=e_pos, yaw=e_yaw, speed=e_speed, extent=ego0.extent,
-        control=torch.stack([steer, throttle, brake], dim=-1),
-    )
+        with tracing.span("step_world.traffic"):
+            # --- ego integration ----------------------------------------------------
+            steer = torch.clamp(control[:, 0] + steer_noise, -1.0, 1.0)
+            throttle = torch.clamp(control[:, 1], 0.0, 1.0)
+            brake = control[:, 2]
+            e_pos, e_yaw, e_speed = bicycle_step(
+                sim, ego0.pos, ego0.yaw, ego0.speed, steer, throttle, brake,
+                drag=sim.drag,
+            )
+            ego = EgoState(
+                pos=e_pos, yaw=e_yaw, speed=e_speed, extent=ego0.extent,
+                control=torch.stack([steer, throttle, brake], dim=-1),
+            )
 
-    # --- traffic --------------------------------------------------------------
-    route_win = route_window(state.route, state.criteria.route_idx, ROUTE_WIN)
-    yaw_rate, accel, new_wp, loop_jump = traffic_policy(
-        sim, town, tl_states, tr.pos, tr.yaw, tr.speed, tr.extent, tr.wp_idx,
-        tr.active, ego0.pos, ego0.yaw, ego0.extent, ego0.speed,
-        walkers.pos, walkers.extent, walkers.active,
-        ego_route=route_win[..., :2],
-        ego_slow_s=state.criteria.slow_s,
-        ego_held_red=ego_red_ahead(town, tl_states, route_win),
-    )
-    # scripted scenario vehicles hold heading and speed
-    yaw_rate = torch.where(scripted_mask, torch.zeros_like(yaw_rate), yaw_rate)
-    accel = torch.where(scripted_mask,
-                        (scripted_speed - tr.speed) / sim.dt * 0.5, accel)
+            # --- traffic --------------------------------------------------------------
+            route_win = route_window(state.route, state.criteria.route_idx, ROUTE_WIN)
+            yaw_rate, accel, new_wp, loop_jump = traffic_policy(
+                sim, town, tl_states, tr.pos, tr.yaw, tr.speed, tr.extent, tr.wp_idx,
+                tr.active, ego0.pos, ego0.yaw, ego0.extent, ego0.speed,
+                walkers.pos, walkers.extent, walkers.active,
+                ego_route=route_win[..., :2],
+                ego_slow_s=state.criteria.slow_s,
+                ego_held_red=ego_red_ahead(town, tl_states, route_win),
+            )
+            # scripted scenario vehicles hold heading and speed
+            yaw_rate = torch.where(scripted_mask, torch.zeros_like(yaw_rate), yaw_rate)
+            accel = torch.where(scripted_mask,
+                                (scripted_speed - tr.speed) / sim.dt * 0.5, accel)
 
-    t_pos, t_yaw, t_speed = point_mass_step(
-        tr.pos, tr.yaw, tr.speed, yaw_rate, accel, sim.dt
-    )
-    # loop-jump teleport onto the successor when the landing is clear of the
-    # ego and of other vehicles; until then hold at the route end and retry
-    V = tr.pos.shape[1]
-    not_self = ~torch.eye(V, dtype=torch.bool, device=dev)
-    jump_to = town.lane_pts[new_wp]
-    clear_ego = torch.linalg.norm(jump_to - ego0.pos[:, None], dim=-1) > 25.0
-    d_pairs = torch.linalg.norm(jump_to[:, :, None] - t_pos[:, None, :], dim=-1)
-    clear_veh = torch.all(
-        (d_pairs > 8.0) | ~tr.active[:, None, :] | ~not_self, dim=2
-    )
-    do_jump = loop_jump & ~scripted_mask & tr.active
-    teleport = do_jump & clear_ego & clear_veh
-    hold = do_jump & ~teleport
-    t_pos = torch.where(teleport[..., None], jump_to, t_pos)
-    t_pos = torch.where(hold[..., None], tr.pos, t_pos)
-    t_yaw = torch.where(teleport, town.lane_yaw[new_wp], t_yaw)
-    t_speed = torch.where(teleport | hold, torch.zeros_like(t_speed), t_speed)
-    new_wp = torch.where(hold, tr.wp_idx, new_wp)
+            t_pos, t_yaw, t_speed = point_mass_step(
+                tr.pos, tr.yaw, tr.speed, yaw_rate, accel, sim.dt
+            )
+            # loop-jump teleport onto the successor when the landing is clear of the
+            # ego and of other vehicles; until then hold at the route end and retry
+            V = tr.pos.shape[1]
+            not_self = ~torch.eye(V, dtype=torch.bool, device=dev)
+            jump_to = town.lane_pts[new_wp]
+            clear_ego = torch.linalg.norm(jump_to - ego0.pos[:, None], dim=-1) > 25.0
+            d_pairs = torch.linalg.norm(jump_to[:, :, None] - t_pos[:, None, :], dim=-1)
+            clear_veh = torch.all(
+                (d_pairs > 8.0) | ~tr.active[:, None, :] | ~not_self, dim=2
+            )
+            do_jump = loop_jump & ~scripted_mask & tr.active
+            teleport = do_jump & clear_ego & clear_veh
+            hold = do_jump & ~teleport
+            t_pos = torch.where(teleport[..., None], jump_to, t_pos)
+            t_pos = torch.where(hold[..., None], tr.pos, t_pos)
+            t_yaw = torch.where(teleport, town.lane_yaw[new_wp], t_yaw)
+            t_speed = torch.where(teleport | hold, torch.zeros_like(t_speed), t_speed)
+            new_wp = torch.where(hold, tr.wp_idx, new_wp)
 
-    # --- deadlock recycle: respawn an NPC stationary longer than any red
-    # phase on a random clear spawn point; scenario actors are exempt
-    running = scen.state == scen_lib.RUNNING
-    v_ids = torch.arange(V, device=dev)
-    prot = torch.any(running[..., None] & (scen.actor_idx[..., None] == v_ids), dim=1)
-    blocker = scen.param[..., 3].to(torch.int64)
-    prot = prot | torch.any(
-        (running & (scen.kind == scen_lib.KIND_BLOCKED_OVERTAKE))[..., None]
-        & (blocker[..., None] == v_ids),
-        dim=1,
-    ) | scripted_mask
-    stationary = tr.active & (t_speed < 0.5) & ~prot
-    flowing = t_speed > 1.5
-    stop_s = torch.where(
-        stationary, tr.stop_s + sim.dt,
-        torch.where(flowing, torch.clamp_min(tr.stop_s - 5.0 * sim.dt, 0.0),
-                    tr.stop_s),
-    )
-    cand = draws.recycle_cand
-    cand_pos = town.spawn[cand, :2]
-    ok_valid = town.spawn_valid[cand]
-    ok_ego = torch.linalg.norm(cand_pos - ego0.pos[:, None], dim=-1) > 30.0
-    d_cv = torch.linalg.norm(cand_pos[:, :, None] - t_pos[:, None, :], dim=-1)
-    ok_veh = torch.all((d_cv > 10.0) | ~tr.active[:, None, :] | ~not_self, dim=2)
-    recycle = (stop_s > sim.npc_recycle_s) & ok_valid & ok_ego & ok_veh
-    t_pos = torch.where(recycle[..., None], cand_pos, t_pos)
-    t_yaw = torch.where(recycle, town.spawn[cand, 2], t_yaw)
-    t_speed = torch.where(recycle, torch.zeros_like(t_speed), t_speed)
-    new_wp = torch.where(recycle, town.spawn_wp[cand], new_wp)
-    stop_s = torch.where(recycle, torch.zeros_like(stop_s), stop_s)
+            # --- deadlock recycle: respawn an NPC stationary longer than any red
+            # phase on a random clear spawn point; scenario actors are exempt
+            running = scen.state == scen_lib.RUNNING
+            v_ids = torch.arange(V, device=dev)
+            prot = torch.any(running[..., None] & (scen.actor_idx[..., None] == v_ids), dim=1)
+            blocker = scen.param[..., 3].to(torch.int64)
+            prot = prot | torch.any(
+                (running & (scen.kind == scen_lib.KIND_BLOCKED_OVERTAKE))[..., None]
+                & (blocker[..., None] == v_ids),
+                dim=1,
+            ) | scripted_mask
+            stationary = tr.active & (t_speed < 0.5) & ~prot
+            flowing = t_speed > 1.5
+            stop_s = torch.where(
+                stationary, tr.stop_s + sim.dt,
+                torch.where(flowing, torch.clamp_min(tr.stop_s - 5.0 * sim.dt, 0.0),
+                            tr.stop_s),
+            )
+            cand = draws.recycle_cand
+            cand_pos = town.spawn[cand, :2]
+            ok_valid = town.spawn_valid[cand]
+            ok_ego = torch.linalg.norm(cand_pos - ego0.pos[:, None], dim=-1) > 30.0
+            d_cv = torch.linalg.norm(cand_pos[:, :, None] - t_pos[:, None, :], dim=-1)
+            ok_veh = torch.all((d_cv > 10.0) | ~tr.active[:, None, :] | ~not_self, dim=2)
+            recycle = (stop_s > sim.npc_recycle_s) & ok_valid & ok_ego & ok_veh
+            t_pos = torch.where(recycle[..., None], cand_pos, t_pos)
+            t_yaw = torch.where(recycle, town.spawn[cand, 2], t_yaw)
+            t_speed = torch.where(recycle, torch.zeros_like(t_speed), t_speed)
+            new_wp = torch.where(recycle, town.spawn_wp[cand], new_wp)
+            stop_s = torch.where(recycle, torch.zeros_like(stop_s), stop_s)
 
-    act = tr.active
-    traffic = TrafficState(
-        pos=torch.where(act[..., None], t_pos, tr.pos),
-        yaw=torch.where(act, t_yaw, tr.yaw),
-        speed=torch.where(act, t_speed, tr.speed),
-        extent=tr.extent,
-        wp_idx=torch.where(act, new_wp, tr.wp_idx),
-        active=tr.active,
-        stop_s=torch.where(act, stop_s, tr.stop_s),
-    )
+            act = tr.active
+            traffic = TrafficState(
+                pos=torch.where(act[..., None], t_pos, tr.pos),
+                yaw=torch.where(act, t_yaw, tr.yaw),
+                speed=torch.where(act, t_speed, tr.speed),
+                extent=tr.extent,
+                wp_idx=torch.where(act, new_wp, tr.wp_idx),
+                active=tr.active,
+                stop_s=torch.where(act, stop_s, tr.stop_s),
+            )
 
-    # --- walkers --------------------------------------------------------------
-    w_pos, _, _ = point_mass_step(
-        walkers.pos, walkers.yaw, walkers.speed,
-        torch.zeros_like(walkers.yaw), torch.zeros_like(walkers.speed), sim.dt,
-    )
-    walkers = dataclasses.replace(
-        walkers, pos=torch.where(walkers.active[..., None], w_pos, walkers.pos)
-    )
+            # --- walkers --------------------------------------------------------------
+            w_pos, _, _ = point_mass_step(
+                walkers.pos, walkers.yaw, walkers.speed,
+                torch.zeros_like(walkers.yaw), torch.zeros_like(walkers.speed), sim.dt,
+            )
+            walkers = dataclasses.replace(
+                walkers, pos=torch.where(walkers.active[..., None], w_pos, walkers.pos)
+            )
 
-    # --- criteria ---------------------------------------------------------------
-    crit, events = update_criteria(
-        cfg, town, state.criteria, ego0.pos, ego.pos, ego.yaw, ego.speed,
-        ego.extent, traffic.pos, traffic.yaw, traffic.extent, traffic.active,
-        walkers.pos, walkers.yaw, walkers.extent, walkers.active, tl_states,
-        state.route, state.route_cumlen, state.route_len_m, time_after_tick(state, sim.dt),
-    )
-    history = _push_history(state.history, traffic, walkers, tl_states)
+        # --- criteria ---------------------------------------------------------------
+        with tracing.span("step_world.criteria"):
+            crit, events = update_criteria(
+                cfg, town, state.criteria, ego0.pos, ego.pos, ego.yaw, ego.speed,
+                ego.extent, traffic.pos, traffic.yaw, traffic.extent, traffic.active,
+                walkers.pos, walkers.yaw, walkers.extent, walkers.active, tl_states,
+                state.route, state.route_cumlen, state.route_len_m, time_after_tick(state, sim.dt),
+            )
+        with tracing.span("step_world.commit"):
+            history = _push_history(state.history, traffic, walkers, tl_states)
 
-    new_state = WorldState(
-        tick=state.tick + 1,
-        ego=ego,
-        traffic=traffic,
-        walkers=walkers,
-        route=state.route,
-        route_cumlen=state.route_cumlen,
-        route_len_m=state.route_len_m,
-        criteria=crit,
-        history=history,
-        scenario=scen,
-        weather=state.weather,
-    )
-    done = state.criteria.done
-    frozen = tree_map(lambda new, old: _freeze(done, new, old), new_state, state)
-    frozen = dataclasses.replace(frozen, tick=new_state.tick)
-    events = tree_map(lambda e: e & ~done, events)
-    return frozen, events
+            new_state = WorldState(
+                tick=state.tick + 1,
+                ego=ego,
+                traffic=traffic,
+                walkers=walkers,
+                route=state.route,
+                route_cumlen=state.route_cumlen,
+                route_len_m=state.route_len_m,
+                criteria=crit,
+                history=history,
+                scenario=scen,
+                weather=state.weather,
+            )
+            done = state.criteria.done
+            frozen = tree_map(lambda new, old: _freeze(done, new, old), new_state, state)
+            frozen = dataclasses.replace(frozen, tick=new_state.tick)
+            events = tree_map(lambda e: e & ~done, events)
+            return frozen, events
 
 
 def rollout(cfg: Config, town: TownMap, state: WorldState, policy_fn, n_steps: int,
