@@ -9,7 +9,10 @@ against its CPU run on small inputs, and drives both rollouts:
   expert, policy every 2 ticks);
 - the ThinkTwice student's closed loop at the full width of the
   student_rl6 archive (8 worlds, 4 cameras of 256 x 512 and a 64 x 1024
-  lidar through K2, ResNet-50 two-sweep model, policy every tick, 40 ticks);
+  lidar through K2, ResNet-50 two-sweep model, policy every tick, 40 ticks,
+  K3 and K4 in each refine layer); then K3 and K4 against their plain
+  versions and timed on one policy call's inputs at the closed loop's
+  shape (8 worlds, 448 x 896 cameras);
 - the student's training: the roach_rl6 expert collects in the loop (K1 in
   the expert, K2 in the cameras and the lidar) one world's chunks of 13
   frames, 8 two-sweep examples each, and `loop.train` takes 3 AdamW steps
@@ -684,6 +687,158 @@ def k2_bound(inputs) -> dict:
                 all_pairs=all_pairs, all_pairs_ms=max(t_bytes, t_all))
 
 
+def k3_bound(value_cams, spatial_shapes, ref_points, offsets, weights) -> dict:
+    """The least time of one K3 launch on an H100, by bytes, for what these
+    inputs need: each 32-channel head block of value that an inside corner
+    of a tap reads, read once; the reference points, offsets and weights
+    read once; the output written once. Also the bytes of every tap's
+    corners as the kernel reads them (L2 serves the repeats)."""
+    from thinktwice_tpu_torch.ops.deform_attn import sampling_locations
+
+    N, B, S, C = value_cams.shape
+    H = offsets.shape[3]
+    item = value_cams.element_size()
+    locs = sampling_locations(spatial_shapes, ref_points, offsets)  # (B, N, Q, H, L, P, 2)
+    b = torch.arange(B, device=locs.device)[:, None, None, None, None]
+    n = torch.arange(N, device=locs.device)[None, :, None, None, None]
+    h = torch.arange(H, device=locs.device)[None, None, None, :, None]
+    keys, start = [], 0
+    for lvl, (hl, wl) in enumerate(spatial_shapes):
+        x = locs[:, :, :, :, lvl, :, 0] * wl - 0.5
+        y = locs[:, :, :, :, lvl, :, 1] * hl - 0.5
+        x0, y0 = torch.floor(x), torch.floor(y)
+        for dx, dy in ((0, 0), (1, 0), (0, 1), (1, 1)):
+            xi, yi = x0 + dx, y0 + dy
+            inside = (xi >= 0) & (xi < wl) & (yi >= 0) & (yi < hl)
+            row = start + yi.clamp(0, hl - 1).long() * wl + xi.clamp(0, wl - 1).long()
+            key = (((n * B + b) * S + row) * H + h).expand_as(inside)
+            keys.append(key[inside])
+        start += hl * wl
+    keys = torch.cat(keys)
+    head_bytes = C // H * item
+    read = (torch.unique(keys).numel() * head_bytes + ref_points.numel() * 4
+            + (offsets.numel() + weights.numel()) * item)
+    written = B * N * ref_points.shape[2] * C * item
+    bytes_ms = (read + written) / HBM_BYTES_PER_S * 1e3
+    return dict(bound_ms=bytes_ms, bound_by="bytes", bytes=read + written,
+                taps_bytes=keys.numel() * head_bytes)
+
+
+def k4_bound(maps, coords) -> dict:
+    """The least time of one K4 launch on an H100, by bytes: each pixel's
+    channels that an inside corner reads, read once; the points read once;
+    the float32 output written once. Also the bytes of every corner as the
+    kernel reads them."""
+    B, N, Q, _ = coords.shape
+    C = maps[0].shape[-1]
+    item = maps[0].element_size()
+    b = torch.arange(B, device=coords.device)[:, None, None]
+    n = torch.arange(N, device=coords.device)[None, :, None]
+    pixels = corners = 0
+    for m in maps:
+        hl, wl = m.shape[2], m.shape[3]
+        g = coords * 2.0 - 1.0
+        x = (g[..., 0] + 1.0) * 0.5 * wl - 0.5
+        y = (g[..., 1] + 1.0) * 0.5 * hl - 0.5
+        x0, y0 = torch.floor(x), torch.floor(y)
+        keys = []
+        for dx, dy in ((0, 0), (1, 0), (0, 1), (1, 1)):
+            xi, yi = x0 + dx, y0 + dy
+            inside = (xi >= 0) & (xi < wl) & (yi >= 0) & (yi < hl)
+            key = ((n * B + b) * hl + yi.clamp(0, hl - 1).long()) * wl \
+                + xi.clamp(0, wl - 1).long()
+            keys.append(key[inside])
+        keys = torch.cat(keys)
+        pixels += torch.unique(keys).numel()
+        corners += keys.numel()
+    read = pixels * C * item + coords.numel() * 4
+    written = B * N * Q * len(maps) * C * 4
+    return dict(bound_ms=(read + written) / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                bytes=read + written, taps_bytes=corners * C * item)
+
+
+def look_kernels(args, device, card: str):
+    """K3 and K4 on the inputs of one policy call of the student_rl6 weights
+    at the closed loop's shape (8 worlds, 448 x 896 cameras): their launches
+    over the call (once a refine layer each), each against its plain
+    version, ms a launch, the plain version's ms and the bound by bytes.
+    -> K3's and K4's rows of the kernels line."""
+    from thinktwice_tpu_torch.agents.thinktwice_driver import driver_init, make_thinktwice_driver
+    from thinktwice_tpu_torch.config import CameraConfig, ModelConfig, bench_config
+    from thinktwice_tpu_torch.models import decoder
+    from thinktwice_tpu_torch.ops import deform_attn as k3
+    from thinktwice_tpu_torch.ops import grid_sample as k4
+    from thinktwice_tpu_torch.rollout import grid_world
+    from thinktwice_tpu_torch.weights import load_student_model
+
+    cfg = bench_config().replace(camera=CameraConfig(height=448, width=896),
+                                 model=ModelConfig(img_height=448, img_width=896))
+    model = load_student_model(args.student_weights, cfg, device=device)
+    g = torch.Generator(device=device).manual_seed(44)
+    town, states = grid_world(cfg, STUDENT_WORLDS, N_VEHICLES, device=device, generator=g)
+    policy = make_thinktwice_driver(cfg, model)
+    driver = driver_init(cfg, STUDENT_WORLDS, model.n_sweeps, device=device)
+    _, driver = policy(town, states, driver, generator=g)
+    torch.cuda.synchronize()
+    before = k3.K3.launches, k4.K4.launches
+    with Spy(decoder, "deform_attn_cams", keep=1) as rec3, \
+            Spy(decoder, "sample_levels", keep=1) as rec4:
+        policy(town, states, driver, generator=g)
+    torch.cuda.synchronize()
+    n3, n4 = k3.K3.launches - before[0], k4.K4.launches - before[1]
+    if (n3, n4) != (5, 5):
+        raise AssertionError(f"K3 and K4 launched {n3} and {n4} times in a forward, expected 5")
+    a3, (maps, coords) = rec3.calls[-1], rec4.calls[-1]
+    value = a3[0]
+    out = k3.deform_attn_cams_cuda(*a3)
+    exact = k3.deform_attn_cams_plain(value.double(), a3[1], a3[2].double(), a3[3].double(),
+                                      a3[4].double())
+    scale = float(exact.abs().max())
+    err3 = float((out.double() - exact).abs().max()) / scale
+    err3_plain = float((k3.deform_attn_cams_plain(*a3).double() - exact).abs().max()) / scale
+    if err3 > 2 ** -8:
+        raise AssertionError(f"K3 differs from the float64 plain version by {err3:.3e}")
+    del exact
+    ms3 = cuda_ms(lambda: k3.deform_attn_cams_cuda(*a3), reps=50)
+    plain3 = cuda_ms(lambda: k3.deform_attn_cams_plain(*a3), reps=5)
+    b3 = k3_bound(*a3)
+    N, B, S, C = value.shape
+    log(f"[k3 vs plain] {B} worlds x {N} cameras x {a3[2].shape[2]} queries x "
+        f"{a3[3].shape[3]} heads x {len(a3[1])} levels x {a3[3].shape[5]} points, "
+        f"{value.dtype}: K3 within {err3:.3e} of the output's scale of the float64 plain "
+        f"version, the plain {value.dtype} version within {err3_plain:.3e}; launches in a "
+        f"forward K3 {n3}, K4 {n4}")
+    log(f"[k3 time] {ms3:.4f} ms a launch (plain {plain3:.3f} ms, bound {b3['bound_ms']:.4f} ms "
+        f"by bytes: {b3['bytes'] / 1e6:.2f} MB, the head blocks of value the taps need read "
+        f"once, the offsets, weights and points read and the output written; every tap's "
+        f"corners {b3['taps_bytes'] / 1e6:.1f} MB) on {card}")
+    out4 = k4.sample_levels_cuda(maps, coords)
+    equal4 = torch.equal(out4, k4.sample_levels_plain(maps, coords))
+    if not equal4:
+        raise AssertionError("K4 differs from its plain version")
+    ms4 = cuda_ms(lambda: k4.sample_levels_cuda(maps, coords), reps=50)
+    plain4 = cuda_ms(lambda: k4.sample_levels_plain(maps, coords), reps=5)
+    b4 = k4_bound(maps, coords)
+    log(f"[k4 vs plain] {B} worlds x {N} cameras x {coords.shape[2]} points x {len(maps)} "
+        f"levels of {tuple(tuple(m.shape[2:4]) for m in maps)} x {maps[0].shape[-1]} "
+        f"channels, {maps[0].dtype}: equal bit for bit")
+    log(f"[k4 time] {ms4:.4f} ms a launch (plain {plain4:.3f} ms, bound {b4['bound_ms']:.4f} ms "
+        f"by bytes: {b4['bytes'] / 1e6:.2f} MB, the pixels the corners need read once, the "
+        f"points read and the float32 output written; every corner {b4['taps_bytes'] / 1e6:.1f}"
+        f" MB) on {card}")
+    rows = []
+    for name, src, err, ms, plain, b in (("deform_attn_cams", "deform_attn.cu", err3, ms3,
+                                          plain3, b3),
+                                         ("sample_levels", "look_sample.cu", 0.0, ms4, plain4,
+                                          b4)):
+        rows.append(dict(name=name, route="cuda", source=f"thinktwice_tpu_torch/csrc/{src}",
+                         replaces="none", launches_a_forward=5, max_abs_err=err, ms=ms,
+                         plain_ms=plain, bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                         library_ms=None))
+    del model, town, states, driver, rec3, rec4, a3, maps, coords, out, out4
+    return rows
+
+
 def check_student_small(device):
     """The student's closed loop on the card against the CPU (plain K2) on
     the tiny config with random weights: two worlds, five policy calls in
@@ -812,11 +967,14 @@ def student_breakdown(cfg, model, town, states, g):
 
 def student_phases(args, on_card: bool, device, card: str):
     """K2 against its plain version at the student's shapes, its time, the
-    student on the card against the CPU, and the student's closed loop with
+    student on the card against the CPU, the student's closed loop with
     the student_rl6 weights (on the CPU: the tiny config with random
-    weights). -> K2's row of the kernels line (None on the CPU)."""
+    weights), and K3 and K4 at the closed loop's shape. -> (K2's row, K3's
+    and K4's rows) of the kernels line (None on the CPU)."""
     from thinktwice_tpu_torch.agents.thinktwice_driver import rollout_thinktwice
     from thinktwice_tpu_torch.config import bench_config
+    from thinktwice_tpu_torch.ops.deform_attn import K3
+    from thinktwice_tpu_torch.ops.grid_sample import K4
     from thinktwice_tpu_torch.ops.raycast_cuda import K2_TILE, ray_boxes_cuda, ray_boxes_plain
     from thinktwice_tpu_torch.rollout import grid_world
     from thinktwice_tpu_torch.weights import load_student_model
@@ -826,15 +984,16 @@ def student_phases(args, on_card: bool, device, card: str):
         cfg = student_tiny_config()
         model = tiny_student(cfg, device)
         town, states = grid_world(cfg, 2, 6, device=device, generator=g)
+        look_before = K3.launches + K4.launches
         final, controls, seconds, k1_n, k2_n = run_student(cfg, model, town, states, 4, g,
                                                            False, hist_len=2)
-        log(f"[student] 2 worlds x 4 ticks (tiny config, random weights, plain K2) in "
-            f"{seconds:.3f} s; K2 launches {k2_n} (expected 0)")
-        if k1_n or k2_n:
+        log(f"[student] 2 worlds x 4 ticks (tiny config, random weights, plain K2, K3 and "
+            f"K4) in {seconds:.3f} s; K2 launches {k2_n} (expected 0)")
+        if k1_n or k2_n or K3.launches + K4.launches != look_before:
             raise AssertionError("a kernel launched on the CPU")
         check_student_run(final, controls, 4)
         eval_student(cfg, model, device, 2, 6, card, max_steps=4, segment=2)
-        return None
+        return None, None
 
     cfg = bench_config()
     t0 = time.perf_counter()
@@ -877,15 +1036,21 @@ def student_phases(args, on_card: bool, device, card: str):
     log(f"[student warm-up] {STUDENT_WORLDS} worlds x {STUDENT_WARMUP} ticks, the model's "
         f"first forward included, in {time.perf_counter() - t0:.3f} s on {card}")
 
+    look_before = K3.launches, K4.launches
     final, controls, seconds, k1_n, k2_n = run_student(cfg, model, town, states,
                                                        STUDENT_TICKS, g, True)
     expected = 2 * STUDENT_TICKS
+    k3_n, k4_n = K3.launches - look_before[0], K4.launches - look_before[1]
+    refine = cfg.model.refine_num * STUDENT_TICKS
     log(f"[student] {STUDENT_WORLDS} worlds x {STUDENT_TICKS} ticks (policy every tick, "
         f"{model.n_sweeps} sweeps) in {seconds:.3f} s: "
         f"{STUDENT_WORLDS * STUDENT_TICKS / seconds:.1f} env-steps/s on {card}; "
-        f"K2 launches {k2_n} (expected {expected}), K1 launches {k1_n}")
+        f"K2 launches {k2_n} (expected {expected}), K3 {k3_n} and K4 {k4_n} (expected "
+        f"{refine} each), K1 launches {k1_n}")
     if k2_n != expected or k1_n != 0:
         raise AssertionError(f"K2 launched {k2_n} times, expected {expected}")
+    if k3_n != refine or k4_n != refine:
+        raise AssertionError(f"K3 and K4 launched {k3_n} and {k4_n} times, expected {refine}")
     check_student_run(final, controls, STUDENT_TICKS)
     k2_row["launches"] = k2_n
     inputs = k2_inputs(cfg, town, final)
@@ -893,7 +1058,9 @@ def student_phases(args, on_card: bool, device, card: str):
     del inputs
     student_breakdown(cfg, model, town, final, g)
     eval_student(cfg, model, device, STUDENT_WORLDS, N_VEHICLES, card)
-    return k2_row
+    del model, town, states, final, controls
+    torch.cuda.empty_cache()
+    return k2_row, look_kernels(args, device, card)
 
 
 # --------------------------------------------------------------------------
@@ -2216,6 +2383,8 @@ def main() -> int:
     from thinktwice_tpu_torch.bench import card_line
     from thinktwice_tpu_torch.config import bench_config
     from thinktwice_tpu_torch.ops.birdview_cuda import K1
+    from thinktwice_tpu_torch.ops.deform_attn import K3
+    from thinktwice_tpu_torch.ops.grid_sample import K4
     from thinktwice_tpu_torch.ops.nvcc import build_all
     from thinktwice_tpu_torch.ops.raycast_cuda import K2
     from thinktwice_tpu_torch.rollout import grid_world, rollout
@@ -2242,11 +2411,11 @@ def main() -> int:
         kind, card = "cpu", "cpu"
         log(f"[card] none: CPU rehearsal with the plain versions, torch {torch.__version__}")
 
-    # ---- phase 2: build K1 and K2, one nvcc each, at once ----------------
+    # ---- phase 2: build K1 to K4, one nvcc each, at once -----------------
     if on_card:
-        wall = build_all([K1, K2])
-        log(f"[build] K1 and K2 in {wall:.1f} s")
-        for name, k in (("K1", K1), ("K2", K2)):
+        wall = build_all([K1, K2, K3, K4])
+        log(f"[build] K1, K2, K3 and K4 in {wall:.1f} s")
+        for name, k in (("K1", K1), ("K2", K2), ("K3", K3), ("K4", K4)):
             log(f"[build] {name} {os.path.relpath(k.source, REPO)}: {k.build_seconds:.1f} s")
             for line in k.build_log.strip().splitlines():
                 log(f"[build]   {line.strip()}")
@@ -2345,7 +2514,7 @@ def main() -> int:
     clock.lap("6 evaluations")
 
     # ---- phase 7: the ThinkTwice student and its evaluation -----------------
-    k2_row = student_phases(args, on_card, device, card)
+    k2_row, look_rows = student_phases(args, on_card, device, card)
     if on_card:
         torch.cuda.empty_cache()
     clock.lap("7 student")
@@ -2412,7 +2581,7 @@ def main() -> int:
         k1_keys = ("town_rows", "town_ms", "town_plain_ms", "town_bound_ms", "town_bound_by",
                    "longest6_rows", "longest6_ms", "longest6_bound_ms", "longest6_bound_by")
         log(json.dumps({"kernels": [{k: row[k] for k in keys + (k1_keys if row is k1_row else ())}
-                                    for row in (k1_row, k2_row)]}))
+                                    for row in (k1_row, k2_row)] + look_rows}))
         log(clock.line())
         log(card_line(device))
         device_info = {"platform": "gpu", "kind": kind,

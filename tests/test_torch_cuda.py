@@ -604,3 +604,236 @@ def test_expert_iterate_on_card_matches_cpu(card, kind, monkeypatch):
     assert (crosscheck.METRIC_TOL, crosscheck.GRAD_TOL, crosscheck.GRAD_COS) == (1e-3, 1e-2, 0.99)
     r = crosscheck.compare(dev, cpu)
     assert r["ok"], r
+
+
+# --------------------------------------------------------------------------
+# K3 (deformable attention) and K4 (the look module's point sampler) at the
+# closed loop's shapes: 8 worlds, 4 cameras, 120 look points a camera, the
+# FPN levels of 448 x 896 cameras, 8 heads of 32 channels, 8 points a level
+
+LOOP8_LEVELS = ((112, 224), (56, 112), (28, 56), (14, 28))
+
+
+def _k3_inputs(card, dtype, B=8, N=4, Q=120, H=8, D=32, P=8, shapes=LOOP8_LEVELS, seed=0):
+    """value_cams as the student makes it, a transposed view of (B, N, S, C);
+    reference points over [-0.2, 1.2]; offsets of a few pixels. World 0,
+    camera 0 holds the edges: queries 0-1 at the corners (0, 0) and (1, 1)
+    with zero offsets (half a pixel outside the maps), query 2 one pixel of
+    the coarsest level off its right and bottom edges (off every level),
+    queries 3-4 on pixel centres and on pixel borders of level 0 (integer
+    offsets)."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    L, S, C = len(shapes), sum(h * w for h, w in shapes), H * D
+    value = torch.randn((B, N, S, C), generator=g, device=card).to(dtype).transpose(0, 1)
+    ref = torch.rand((B, N, Q, 2), generator=g, device=card) * 1.4 - 0.2
+    off = torch.randn((B, N, Q, H, L, P, 2), generator=g, device=card) * 4
+    h0, w0 = shapes[0]
+    ref[0, 0, 0] = 0.0
+    ref[0, 0, 1] = 1.0
+    ref[0, 0, 2] = torch.tensor([1.0 + 1.0 / shapes[-1][1], 1.0 + 1.0 / shapes[-1][0]])
+    ref[0, 0, 3] = torch.tensor([10.5 / w0, 20.5 / h0])
+    ref[0, 0, 4] = torch.tensor([10.0 / w0, 20.0 / h0])
+    off[0, 0, :3] = 0.0
+    off[0, 0, 3:5] = torch.round(off[0, 0, 3:5])
+    logits = torch.randn((B, N, Q, H, L * P), generator=g, device=card)
+    w = torch.softmax(logits, dim=-1).reshape(B, N, Q, H, L, P)
+    return value, shapes, ref, off.to(dtype), w.to(dtype)
+
+
+def _scaled_err(a, b):
+    return float((a.double() - b.double()).abs().max() / b.double().abs().max())
+
+
+@pytest.mark.cuda
+def test_k3_matches_plain_on_card(card):
+    """bfloat16: K3 keeps the corner weights and every sum in float32 and
+    rounds its output once, so it lies within 2^-8 of the output's scale of
+    the plain version in float64 (half a bfloat16 step and the float32
+    sums); the plain bfloat16 version rounds each of the ~12 products and
+    sums of a tap's chain, so the two differ by up to 2^-5 of the scale.
+    float32: the same operations summed in another order, within 1e-5."""
+    from thinktwice_tpu_torch.ops import deform_attn as k3
+
+    value, shapes, ref, off, w = _k3_inputs(card, torch.bfloat16)
+    before = k3.K3.launches
+    out = k3.deform_attn_cams(value, shapes, ref, off, w)
+    torch.cuda.synchronize()
+    assert k3.K3.launches == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == (8, 4, 120, 256)
+    exact = k3.deform_attn_cams_plain(value.double(), shapes, ref.double(), off.double(),
+                                      w.double())
+    assert _scaled_err(out, exact) <= 2 ** -8
+    assert _scaled_err(out, k3.deform_attn_cams_plain(value, shapes, ref, off, w)) <= 2 ** -5
+    assert bool((out[0, 0, 2] == 0).all())                 # off every level's edge
+
+    value, shapes, ref, off, w = _k3_inputs(card, torch.float32, seed=1)
+    out = k3.deform_attn_cams(value, shapes, ref, off, w)
+    assert _scaled_err(out, k3.deform_attn_cams_plain(value, shapes, ref, off, w)) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2 ** -6)])
+def test_k3_backward_matches_plain_autograd_on_card(card, dtype, tol):
+    """K3's backward against the plain version's autograd in float32 on the
+    same inputs, each gradient within tol of its scale: float32, 1e-5 (grad
+    value's float32 atomics add in an order that changes from run to run,
+    and the channel sums of grad offsets and weights run in another order);
+    bfloat16, 2^-6 (K3 rounds each gradient once from float32, the
+    reference not at all)."""
+    from thinktwice_tpu_torch.ops import deform_attn as k3
+
+    value, shapes, ref, off, w = _k3_inputs(card, dtype, seed=2)
+    ins = [t.detach().clone().requires_grad_(True) for t in (value, off, w)]
+    f32 = [t.detach().float().requires_grad_(True) for t in (value, off, w)]
+    out = k3.deform_attn_cams(ins[0], shapes, ref, ins[1], ins[2])
+    g = torch.randn(out.shape, generator=torch.Generator(device=card).manual_seed(5),
+                    device=card).to(dtype)
+    before = k3.K3.launches
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert k3.K3.launches == before + 1
+    k3.deform_attn_cams_plain(f32[0], shapes, ref, f32[1], f32[2]).backward(g.float())
+    for name, a, b in zip(("value", "offsets", "weights"), ins, f32):
+        assert a.grad.dtype == dtype and a.grad.shape == a.shape, name
+        assert _scaled_err(a.grad, b.grad) <= tol, name
+
+
+@pytest.mark.cuda
+def test_k3_rejects_what_it_does_not_take(card):
+    from thinktwice_tpu_torch.ops import deform_attn as k3
+
+    value, shapes, ref, off, w = _k3_inputs(card, torch.bfloat16, B=2, N=2, Q=8)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        k3.deform_attn_cams(value.double(), shapes, ref, off, w)
+    with pytest.raises(ValueError, match="bfloat16"):
+        k3.deform_attn_cams(value, shapes, ref, off.float(), w)
+    with pytest.raises(ValueError, match="float32"):
+        k3.deform_attn_cams(value, shapes, ref.bfloat16(), off, w)
+    with pytest.raises(ValueError, match="rows"):
+        k3.deform_attn_cams(value, shapes[:3], ref, off, w)
+    with pytest.raises(ValueError, match="shape"):
+        k3.deform_attn_cams(value, shapes, ref, off, w[..., :4])
+    with pytest.raises(ValueError, match="heads"):
+        k3.deform_attn_cams(value[..., :250], shapes, ref, off, w)
+    with pytest.raises(ValueError, match="contiguous"):
+        k3.deform_attn_cams(value, shapes, ref, off.transpose(0, 1).contiguous().transpose(0, 1), w)
+    with pytest.raises(ValueError, match="channels"):
+        k3.deform_attn_cams(value.transpose(2, 3).contiguous().transpose(2, 3), shapes, ref,
+                            off, w)
+    with pytest.raises(ValueError, match="CUDA device"):
+        k3.deform_attn_cams(value, shapes, ref.cpu(), off, w)
+    with pytest.raises(ValueError, match="ref_points"):
+        k3.deform_attn_cams(value, shapes, ref.requires_grad_(True), off, w)
+
+
+def _k4_inputs(card, dtype, B=8, N=4, Q=120, C=256, shapes=LOOP8_LEVELS, seed=0):
+    """Channels-last maps as the student's fusion makes them (level 1 a
+    strided view with contiguous channels); points over [-0.3, 1.3] of the
+    image, world 0, camera 0 holding the corners (0, 0) and (1, 1), points
+    one pixel of level 0 off its left, right, top and bottom edges, a pixel
+    centre and a pixel border of level 0, and a point far outside."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    maps = [torch.randn((B, N, h, w, C), generator=g, device=card).to(dtype)
+            for h, w in shapes]
+    h1, w1 = shapes[1]
+    maps[1] = torch.randn((N, B, h1, w1 + 2, C), generator=g, device=card).to(dtype) \
+        .transpose(0, 1)[:, :, :, 1:w1 + 1]
+    coords = torch.rand((B, N, Q, 2), generator=g, device=card) * 1.6 - 0.3
+    h0, w0 = shapes[0]
+    for i, xy in enumerate([(0.0, 0.0), (1.0, 1.0), (-1.0 / w0, 0.5), (1.0 + 1.0 / w0, 0.5),
+                            (0.5, -1.0 / h0), (0.5, 1.0 + 1.0 / h0), (10.5 / w0, 20.5 / h0),
+                            (10.0 / w0, 20.0 / h0), (1e9, -1e9)]):
+        coords[0, 0, i] = torch.tensor(xy)
+    return maps, coords
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k4_matches_plain_on_card(card, dtype):
+    """K4 does the plain version's float operations in its order (built
+    with --fmad=false): equal bit for bit."""
+    from thinktwice_tpu_torch.ops import grid_sample as k4
+
+    maps, coords = _k4_inputs(card, dtype)
+    before = k4.K4.launches
+    out = k4.sample_levels(maps, coords)
+    torch.cuda.synchronize()
+    assert k4.K4.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == (8, 4, 120, 4 * 256)
+    assert torch.equal(out, k4.sample_levels_plain(maps, coords))
+    assert bool((out[0, 0, 8] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2 ** -7)])
+def test_k4_backward_matches_plain_autograd_on_card(card, dtype, tol):
+    """K4's backward against the plain version's autograd in float32 on the
+    same maps, each level's gradient within tol of its scale: float32, 1e-5
+    (both add with atomics, in orders that change from run to run);
+    bfloat16, 2^-7 (K4 rounds each sum once from float32)."""
+    from thinktwice_tpu_torch.ops import grid_sample as k4
+
+    maps, coords = _k4_inputs(card, dtype, seed=3)
+    ins = [m.detach().clone().requires_grad_(True) for m in maps]
+    f32 = [m.detach().float().requires_grad_(True) for m in maps]
+    out = k4.sample_levels(ins, coords)
+    g = torch.randn(out.shape, generator=torch.Generator(device=card).manual_seed(6),
+                    device=card)
+    before = k4.K4.launches
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert k4.K4.launches == before + 1
+    k4.sample_levels_plain(f32, coords).backward(g)
+    for lvl, (a, b) in enumerate(zip(ins, f32)):
+        assert a.grad.dtype == dtype and a.grad.shape == a.shape, lvl
+        assert _scaled_err(a.grad, b.grad) <= tol, lvl
+
+
+@pytest.mark.cuda
+def test_k4_rejects_what_it_does_not_take(card):
+    from thinktwice_tpu_torch.ops import grid_sample as k4
+
+    maps, coords = _k4_inputs(card, torch.bfloat16, B=2, N=2, Q=12)
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        k4.sample_levels([maps[0], maps[1].float()], coords)
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        k4.sample_levels([m.double() for m in maps], coords)
+    with pytest.raises(ValueError, match="float32"):
+        k4.sample_levels(maps, coords.double())
+    with pytest.raises(ValueError, match="shape"):
+        k4.sample_levels([maps[0], maps[1][..., :128]], coords)
+    with pytest.raises(ValueError, match="channels"):
+        k4.sample_levels([m.transpose(3, 4).contiguous().transpose(3, 4) for m in maps],
+                         coords)
+    with pytest.raises(ValueError, match="levels"):
+        k4.sample_levels([], coords)
+    with pytest.raises(ValueError, match="lie on"):
+        k4.sample_levels([maps[0].cpu()], coords)
+    with pytest.raises(ValueError, match="coords"):
+        k4.sample_levels(maps, coords.requires_grad_(True))
+
+
+@pytest.mark.cuda
+def test_student_forward_launches_k3_and_k4_once_a_refine_layer_on_card(card):
+    """One policy call of the student at the closed loop's size (8 worlds,
+    448 x 896 cameras, ResNet-50 over 2 sweeps, 5 refine layers) under
+    no_grad: K3 and K4 launch 5 times each, once a refine layer."""
+    from thinktwice_tpu_torch.agents.thinktwice_driver import (
+        driver_init, make_thinktwice_driver)
+    from thinktwice_tpu_torch.config import bench_config
+    from thinktwice_tpu_torch.ops import deform_attn as k3
+    from thinktwice_tpu_torch.ops import grid_sample as k4
+    from thinktwice_tpu_torch.train import loop
+
+    cfg = bench_config().replace(camera=CameraConfig(height=448, width=896),
+                                 model=ModelConfig(img_height=448, img_width=896))
+    model = loop.make_model(cfg, backbone_depth=50, n_sweeps=2, device=card).eval()
+    loop.init_model_params(cfg, model, torch.Generator(device=card).manual_seed(0))
+    g = torch.Generator(device=card).manual_seed(1)
+    town, state = grid_world(cfg, 8, 120, device=card, generator=g)
+    policy = make_thinktwice_driver(cfg, model)
+    before = k3.K3.launches, k4.K4.launches
+    ctrl, _ = policy(town, state, driver_init(cfg, 8, 2, device=card), generator=g)
+    torch.cuda.synchronize()
+    assert (k3.K3.launches - before[0], k4.K4.launches - before[1]) == (5, 5)
+    assert ctrl.shape == (8, 3) and bool(torch.isfinite(ctrl).all())

@@ -10,9 +10,12 @@ and controls detached, so no gradient flows from one layer's offsets into
 the layers before it. With teacher waypoints and controls, a second
 cascade through the same layers starts from them (teacher forcing) and
 returns its offsets and features. BEV maps are NCHW, feature maps for the
-look module NHWC (as `ops/grid_sample.py` takes them). The refine layers
-compute in bfloat16 where the JAX package's do; the coarse heads and the
-waypoint and control state stay float32.
+look module NHWC (as `ops/grid_sample.py` takes them). The look module
+samples every camera in one call of each op: its FPN points
+(`ops/grid_sample.py` `sample_levels`, K4 on the card) and its deformable
+attention (`ops/deform_attn.py` `deform_attn_cams`, K3 on the card). The
+refine layers compute in bfloat16 where the JAX package's do; the coarse
+heads and the waypoint and control state stay float32.
 
 The lidar look branch's output is zeros, as in the JAX package (which
 computes the branch and then replaces it with zeros): its parameters are
@@ -36,14 +39,15 @@ from thinktwice_tpu_torch.models.layers import (
     LayerNorm,
     SEBasicBlock,
 )
-from thinktwice_tpu_torch.ops.deform_attn import ms_deform_attn
-from thinktwice_tpu_torch.ops.grid_sample import grid_sample_norm
+from thinktwice_tpu_torch.ops.deform_attn import deform_attn_cams
+from thinktwice_tpu_torch.ops.grid_sample import sample_levels
 
 LOOK_DIM = 256
 LIDAR_HR_CHANNELS = 512
 FLAT_DIM = 256          # BEVPyramid's flat feature
 MEAS_DIM = 128          # the measurement encoder's output
 EMB_DIM = 128           # temporal and static query embeddings
+STATIC_PTS = ((5.0, 0.0), (0.0, -5.0), (0.0, 5.0), (-5.0, 0.0))   # the look module's anchors
 
 
 def inv_softplus(x):
@@ -143,7 +147,7 @@ def project_to_cams(points3d, ego2img, img_hw, ida=None):
 
 class MSDeformAttn(nn.Module):
     """Deformable attention head: heads x levels x points offsets and
-    weights predicted from the query."""
+    weights predicted from the query, every camera at once."""
 
     def __init__(self, dim: int = 256, n_heads: int = 8, n_levels: int = 4,
                  n_points: int = 8, dtype=None):
@@ -154,21 +158,18 @@ class MSDeformAttn(nn.Module):
         self.attention_weights = Dense(dim, hlp, dtype=dtype)
         self.output_proj = Dense(dim, dim, dtype=dtype)
 
-    def forward(self, query, ref_points, value, spatial_shapes):
-        """query (B, Q, dim); ref_points (B, Q, 2) in [0, 1]; value
-        (B, sum HW, dim) -> (B, Q, dim)."""
-        B, Q, _ = query.shape
+    def forward(self, query, ref_points, value_cams, spatial_shapes):
+        """query (B, N, Q, dim); ref_points (B, N, Q, 2) in [0, 1]; value_cams
+        (N, B, sum HW, dim) -> (B, N, Q, dim)."""
+        B, N, Q, _ = query.shape
         h, lv, p = self.n_heads, self.n_levels, self.n_points
-        offsets = self.sampling_offsets(query).reshape(B, Q, h, lv, p, 2)
-        weights = self.attention_weights(query).reshape(B, Q, h, lv * p)
-        weights = torch.softmax(weights, dim=-1).reshape(B, Q, h, lv, p)
-        # sampling locations stay float32: bfloat16 cannot hold sub-pixel
-        # positions on a 128-wide map
-        norm = torch.tensor([[wl, hl] for hl, wl in spatial_shapes],
-                            dtype=torch.float32, device=query.device)
-        locs = (ref_points[:, :, None, None, None, :].float()
-                + offsets.float() / norm[None, None, None, :, None, :])
-        out = ms_deform_attn(value, spatial_shapes, locs, weights.to(value.dtype))
+        offsets = self.sampling_offsets(query).reshape(B, N, Q, h, lv, p, 2)
+        weights = self.attention_weights(query).reshape(B, N, Q, h, lv * p)
+        weights = torch.softmax(weights, dim=-1).reshape(B, N, Q, h, lv, p)
+        # the sampling locations, ref + offset / (W, H), are float32 on both
+        # paths: bfloat16 cannot hold sub-pixel positions on a 128-wide map
+        out = deform_attn_cams(value_cams, spatial_shapes, ref_points, offsets,
+                               weights.to(value_cams.dtype))
         return self.output_proj(out)
 
 
@@ -186,10 +187,7 @@ class SpatialCrossAttention(nn.Module):
     def forward(self, queries, ref_cam, valid, value_cams, spatial_shapes):
         """queries (B, N, Q, Dq); ref_cam (B, N, Q, 2); valid (B, N, Q)
         float; value_cams (N, B, sum HW, dim)."""
-        N = queries.shape[1]
-        q = self.query_proj(queries)
-        out = torch.stack([self.deform_attn(q[:, c], ref_cam[:, c], value_cams[c],
-                                            spatial_shapes) for c in range(N)], dim=1)
+        out = self.deform_attn(self.query_proj(queries), ref_cam, value_cams, spatial_shapes)
         out = out * valid[..., None].to(out.dtype)
         cnt = torch.clamp_min(valid.sum(dim=1), 1.0)             # (B, Q)
         per_query = out.sum(dim=1) / cnt[..., None].to(out.dtype)
@@ -212,6 +210,17 @@ class LookModule(nn.Module):
         query_dim = 4 + 3 + EMB_DIM + MEAS_DIM + FLAT_DIM + 4 * 256
         self.cam_look = SpatialCrossAttention(query_dim, LOOK_DIM, cfg.n_attn_heads,
                                               dtype=dtype)
+        self._anchors = {}
+
+    def anchors(self, device):
+        """(the 4 static anchor points (4, 2), the Z anchor heights (Z,)) on
+        device, built at the first call there: a tensor made from a list on
+        the card is a blocking host-to-device copy."""
+        if device not in self._anchors:
+            self._anchors[device] = (
+                torch.tensor(STATIC_PTS, device=device),
+                torch.linspace(-4.0, 10.0, self.cfg.n_z_anchors, device=device))
+        return self._anchors[device]
 
     def forward(self, wp, ctrl_sp, measurement, flat_feat, ego2img, fpn_value,
                 spatial_shapes, temporal_emb, static_emb, ida=None):
@@ -219,11 +228,9 @@ class LookModule(nn.Module):
         B, T, _ = wp.shape
         Z = m.n_z_anchors
         dev = wp.device
-        static_pts = torch.tensor([[5.0, 0.0], [0.0, -5.0], [0.0, 5.0], [-5.0, 0.0]],
-                                  device=dev)
+        static_pts, zs = self.anchors(dev)
         look_xy = torch.cat([wp, static_pts[None].expand(B, 4, 2)], dim=1)
         P = look_xy.shape[1]
-        zs = torch.linspace(-4.0, 10.0, Z, device=dev)
         pts3d = torch.cat([look_xy[:, :, None, :].expand(B, P, Z, 2),
                            zs[None, None, :, None].expand(B, P, Z, 1)],
                           dim=-1).reshape(B, P * Z, 3)
@@ -239,11 +246,7 @@ class LookModule(nn.Module):
         ref_cam, valid = project_to_cams(pts3d, ego2img, (m.img_height, m.img_width),
                                          ida)
         N = ref_cam.shape[1]
-        sampled = torch.stack([
-            torch.cat([grid_sample_norm(fpn_value["maps"][lvl][:, c],
-                                        ref_cam[:, c] * 2.0 - 1.0)
-                       for lvl in range(len(spatial_shapes))], dim=-1)
-            for c in range(N)], dim=1)                             # (B, N, PZ, 4C)
+        sampled = sample_levels(fpn_value["maps"], ref_cam)           # (B, N, PZ, 4C)
         queries = torch.cat([base_q[:, None].expand(B, N, -1, -1), sampled], dim=-1)
         img_look = self.cam_look(queries, ref_cam, valid.float(), fpn_value["flat"],
                                  spatial_shapes)

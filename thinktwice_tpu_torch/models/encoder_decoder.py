@@ -108,7 +108,9 @@ class ThinkTwiceModel(nn.Module):
                 for lvl, f in enumerate(fpn):
                     f = getattr(self, f"fpn_linear{lvl}")(f)           # (B*N, 256, h, w) bf16
                     h, w = f.shape[-2:]
-                    f = f.reshape(B, N, FPN_CHANNELS, h, w).permute(0, 1, 3, 4, 2)
+                    # channels last in memory, once a forward: the look
+                    # module's point sampler reads each tap's channels in a run
+                    f = f.reshape(B, N, FPN_CHANNELS, h, w).permute(0, 1, 3, 4, 2).contiguous()
                     maps.append(f)                                     # (B, N, h, w, 256)
                     fv = (f.reshape(B, N, h * w, FPN_CHANNELS)
                           + self.cams_embeds[None, :, None, :].to(BF16)

@@ -22,6 +22,8 @@ import tempfile
 import threading
 import time
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -31,6 +33,9 @@ NVCC_FLAGS = [
 ]
 
 vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the element types a kernel templated on its data type takes, by the code
+# its C functions read
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _nvcc() -> str:
