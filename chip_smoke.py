@@ -98,6 +98,7 @@ K2_FLOP_PER_CULL = 42      # float operations of one (tile, box) cone-sphere tes
 K2_RTOL = 1e-5             # t of K2 against its plain version (see compare_k2)
 STUDENT_WORLDS, STUDENT_TICKS = 8, 40   # policy every tick; the ring warms at 10
 STUDENT_WARMUP = 3         # untimed student ticks before the timed run
+SPARSE_TICKS = 4           # timed ticks of the student with the sparse LiDAR encoder
 STUDENT_CTRL_TOL = 5e-2    # card vs CPU controls of the bfloat16 student
 EVAL_TOL = 1e-2            # card vs CPU record floats (scores, route_length, duration_game)
 EVAL_SEGMENT = 256         # ticks between the expert evaluation's done checks
@@ -571,17 +572,19 @@ def tiny_student(cfg, device):
 
 class Spy:
     """Records the arguments (and results) of module.name's calls while the
-    block runs, the last `keep` of them (all with keep None)."""
+    block runs, the last `keep` of them (all with keep None), and counts
+    them all."""
 
     def __init__(self, module, name: str, keep: int | None = None):
         self._mod, self._name, self._keep = module, name, keep
 
     def __enter__(self):
         self._real = getattr(self._mod, self._name)
-        self.calls, self.results = [], []
+        self.calls, self.results, self.count = [], [], 0
 
         def record(*args, **kwargs):
             out = self._real(*args, **kwargs)
+            self.count += 1
             self.calls.append(args + tuple(kwargs.values()))
             self.results.append(out)
             if self._keep is not None:
@@ -836,6 +839,193 @@ def look_kernels(args, device, card: str):
                          plain_ms=plain, bound_ms=b["bound_ms"], bound_by=b["bound_by"],
                          library_ms=None))
     del model, town, states, driver, rec3, rec4, a3, maps, coords, out, out4
+    return rows
+
+
+def sparse_student(on_card: bool):
+    """The student with its published LiDAR encoder (`lidar_encoder="sparse"`)
+    as the main path builds it (make_model, its initial parameters): on the
+    card at the closed loop's shape (8 worlds, 448 x 896 cameras, 131,072
+    points a world), on the CPU the tiny config (a 4 x 64 LiDAR).
+    -> (cfg, model, worlds, vehicles)."""
+    from thinktwice_tpu_torch.config import CameraConfig, ModelConfig, bench_config
+    from thinktwice_tpu_torch.train.loop import make_model
+
+    if on_card:
+        cfg = bench_config().replace(
+            camera=CameraConfig(height=448, width=896),
+            model=ModelConfig(img_height=448, img_width=896, lidar_encoder="sparse"))
+        return cfg, make_model(cfg, 50, 2, device="cuda").eval(), STUDENT_WORLDS, N_VEHICLES
+    cfg = student_tiny_config()
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, lidar_encoder="sparse"))
+    return cfg, make_model(cfg, 10, 2, device="cpu").eval(), 2, 6
+
+
+def rulebook_mismatch(subm, strided) -> tuple[int, int]:
+    """K7's tables of one forward (Spies of subm_rulebook and strided_level)
+    against their plain versions on the same input levels: each strided
+    level's coordinates and count, and every table's neighbours and active
+    pairs. -> (entries that differ, entries compared)."""
+    from thinktwice_tpu_torch.ops import sparse_conv as sc
+
+    def plain_level(level):
+        n = int(level.n)
+        return sc.Level(level.coords[:n].cpu(), level.n.cpu(), level.shape, level.batch)
+
+    def differ(a, b) -> int:
+        a = a.cpu()
+        return a.numel() + b.numel() if a.shape != b.shape else int((a != b).sum())
+
+    bad = total = 0
+    for (level, *_), rb in zip(subm.calls, subm.results):
+        want = sc._table_plain(plain_level(level).coords, plain_level(level), rb.kernel, 1,
+                               tuple(k // 2 for k in rb.kernel))
+        bad += differ(rb.nbr[:int(level.n)], want.nbr) + differ(rb.pairs, want.pairs)
+        total += want.nbr.numel() + 1
+    for (level, kernel, stride, padding), (out, rb) in zip(strided.calls, strided.results):
+        want_out, want = sc._strided_plain(plain_level(level), kernel, stride, padding)
+        n = int(out.n)
+        bad += differ(out.n, want_out.n) + differ(out.coords[:n], want_out.coords)
+        bad += differ(rb.nbr[:n], want.nbr) + differ(rb.pairs, want.pairs)
+        total += 2 + want_out.coords.numel() + want.nbr.numel()
+    return bad, total
+
+
+def sparse_lidar(device, card: str, on_card: bool):
+    """The student's published LiDAR encoder (`lidar_encoder="sparse"`) on
+    its main path: rollout_thinktwice over the closed loop (see
+    sparse_student), with K5's and K6's counts set to 0 just before and
+    K7's tables counted, each checked against one per forward, 21 sparse
+    convolutions and 8 tables; on the last forward's own inputs K5 against
+    its plain version (equal bit for bit), every K7 table against its plain
+    version (equal), the encoder's dense output against the plain
+    version's; ms a launch of K5, K6 and K7, their bounds
+    (`port_bench/counts/k5_bound.py`, `k6_bound.py`, `k7_bound.py`), the
+    plain versions' ms; the voxels a world, those the cap dropped, and the
+    share of the points inside the BEV box that fall outside the z range.
+    On the CPU the plain versions, and the launch counts 0. -> K5's, K6's
+    and K7's rows of the kernels line (None on the CPU)."""
+    from port_bench.counts.k5_bound import k5_bound
+    from port_bench.counts.k6_bound import k6_bound
+    from port_bench.counts.k7_bound import k7_bound
+    from thinktwice_tpu_torch.agents.thinktwice_driver import rollout_thinktwice
+    from thinktwice_tpu_torch.models.sparse_lidarnet import SparseConvBN, SparseLidarNet
+    from thinktwice_tpu_torch.ops import sparse_conv as sc
+    from thinktwice_tpu_torch.ops import voxelize as vx
+    from thinktwice_tpu_torch.rollout import grid_world
+    from thinktwice_tpu_torch.train.loop import init_model_params
+
+    cfg, model, n_worlds, n_vehicles = sparse_student(on_card)
+    net = model.lidar_encoder
+    g = torch.Generator(device=device).manual_seed(48)
+    with torch.no_grad():
+        init_model_params(cfg, model, g)
+    town, states = grid_world(cfg, n_worlds, n_vehicles, device=device, generator=g)
+    warm = 1 if on_card else 0                       # the first forward is slow: untimed
+    states, _, _ = rollout_thinktwice(cfg, town, model, states, warm, generator=g)
+    convs = sum(isinstance(m, SparseConvBN) for m in net.modules())
+    levels = len(net.middle_encoder.downs) + 1
+    ticks = SPARSE_TICKS if on_card else 1
+    vx.K5.launches = sc.K6.launches = 0
+    if on_card:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with Spy(vx, "voxelize", keep=1) as rec5, Spy(net, "encode", keep=1) as rec_enc, \
+            Spy(sc, "sparse_conv", keep=convs) as rec6, \
+            Spy(sc, "subm_rulebook", keep=levels) as rec7s, \
+            Spy(sc, "strided_level", keep=levels) as rec7d:
+        final, _, controls = rollout_thinktwice(cfg, town, model, states, ticks, generator=g)
+        if on_card:
+            torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    n5, n6, n7 = vx.K5.launches, sc.K6.launches, rec7s.count + rec7d.count
+    want = (ticks, convs * ticks, 2 * levels * ticks) if on_card else (0, 0, 2 * levels * ticks)
+    log(f"[sparse student] {n_worlds} worlds x {ticks} ticks (lidar_encoder=\"sparse\", "
+        f"rollout_thinktwice) in {seconds:.3f} s: {n_worlds * ticks / seconds:.2f} env-steps/s on "
+        f"{card}; K5 launches {n5}, K6 {n6}, K7 tables {n7} (expected {want[0]}, {want[1]}, "
+        f"{want[2]}: a forward 1 voxelization, {convs} sparse convolutions and {2 * levels} "
+        f"tables, on the CPU the plain versions)")
+    if (n5, n6, n7) != want:
+        raise AssertionError(f"the sparse student launched K5, K6, K7 {(n5, n6, n7)} times, "
+                             f"expected {want}")
+    check_student_run(final, controls, warm + ticks)
+    pts, mask, spec = rec5.calls[-1]
+    vox = rec5.results[-1]
+    lo, hi = cfg.model.sparse_point_range[:3], cfg.model.sparse_point_range[3:]
+    box = mask & (pts[..., 0] >= lo[0]) & (pts[..., 0] < hi[0]) & (pts[..., 1] >= lo[1]) \
+        & (pts[..., 1] < hi[1])
+    outside_z = box & ((pts[..., 2] < lo[2]) | (pts[..., 2] >= hi[2]))
+    z_share = float(outside_z.sum()) / max(int(box.sum()), 1)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        plain_vox = vx.voxelize_plain(pts.cpu(), mask.cpu(), spec)
+        plain_k5 = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        net_cpu = SparseLidarNet(cfg.model).eval()
+        net_cpu.load_state_dict(net.state_dict())
+        plain_dense = net_cpu.encode(plain_vox, n_worlds)
+        plain_enc = 1e3 * (time.perf_counter() - t0)
+    n, dropped = (int(v) for v in plain_vox.n)
+    for name in ("coords", "point_idx", "counts", "feats"):
+        if not torch.equal(getattr(vox, name)[:n].cpu(), getattr(plain_vox, name)):
+            raise AssertionError(f"K5's {name} differs from its plain version")
+    scale = float(plain_dense.abs().max())
+    err6 = float((rec_enc.results[-1].cpu() - plain_dense).abs().max()) / scale
+    if err6 > 1e-5:
+        raise AssertionError(f"the sparse encoder differs from its plain version by {err6:.3e}")
+    bad7, total7 = rulebook_mismatch(rec7s, rec7d)
+    if bad7:
+        raise AssertionError(f"K7's tables differ from their plain versions in {bad7} of "
+                             f"{total7} entries")
+    if not on_card:
+        log(f"[sparse lidar] the last forward's {n_worlds} worlds x {pts.shape[1]} points (plain "
+            f"versions): {n / n_worlds:.0f} voxels a world, {dropped} dropped by the cap, "
+            f"{z_share:.4%} of the in-box points outside z [{lo[2]}, {hi[2]}) m, {total7} "
+            f"entries of {len(rec7s.calls) + len(rec7d.calls)} tables, the encoder's output "
+            f"{tuple(plain_dense.shape)} in {plain_enc:.1f} ms")
+        return None
+    ms5 = cuda_ms(lambda: vx.voxelize_cuda(pts, mask, spec), reps=20)
+    calls6 = rec6.calls
+    per6 = [cuda_ms(lambda c=c: sc.sparse_conv(*c), reps=5) for c in calls6]
+    per7 = [cuda_ms(lambda c=c: sc.subm_rulebook(*c), reps=5) for c in rec7s.calls]
+    per7 += [cuda_ms(lambda c=c: sc.strided_level(*c), reps=5) for c in rec7d.calls]
+    sum6 = [{"n_in": int(c[1].n_in), "n_out": int(c[1].n_out), "pairs": int(c[1].pairs),
+             "K": int(c[1].nbr.shape[1]), "cin": int(c[2].shape[1]), "cout": int(c[2].shape[0]),
+             "residual": len(c) > 4 and c[4] is not None} for c in calls6]
+    sum7 = [{"n_out": int(r.n_out), "K": int(r.nbr.shape[1]), "n_in": None}
+            for r in rec7s.results]
+    sum7 += [{"n_out": int(r.n_out), "K": int(r.nbr.shape[1]), "n_in": int(r.n_in)}
+             for _, r in rec7d.results]
+    b5 = k5_bound([{"B": n_worlds, "P": pts.shape[1], "F": pts.shape[2],
+                    "M": spec.max_points, "n": [n, dropped]}])
+    b6, b7 = k6_bound(sum6), k7_bound(sum7)
+    pairs = sum(c["pairs"] for c in sum6)
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    log(f"[sparse lidar] the last forward's {n_worlds} worlds x {pts.shape[1]} points: "
+        f"{n / n_worlds:.0f} voxels a world ({n} kept, {dropped} dropped by the cap of "
+        f"{spec.max_voxels}); {z_share:.4%} of the in-box points outside z [{lo[2]}, {hi[2]}) m; "
+        f"K5 equal to its plain version bit for bit; K7's {len(sum7)} tables "
+        f"({len(rec7d.calls)} strided levels) equal to their plain versions in all {total7} "
+        f"entries; the encoder's output within {err6:.3e} of its scale; {pairs} active pairs")
+    log(f"[sparse lidar time] K5 {ms5:.4f} ms a launch (bound {b5['bound_ms']:.4f} ms by bytes, "
+        f"plain {plain_k5:.1f} ms on the CPU); K6 {sum(per6) / len(per6):.4f} ms a launch, "
+        f"{sum(per6):.3f} ms a forward (bound {b6['bound_ms']:.4f} ms: "
+        f"{b6['bytes'] / 1e6:.1f} MB, {b6['flops'] / 1e9:.2f} GFLOP); K7 {sum(per7):.3f} ms a "
+        f"forward (bound {b7['bound_ms']:.4f} ms); the plain encoder {plain_enc:.0f} ms on the "
+        f"CPU; peak {peak:.2f} GiB on {card}")
+    rows = []
+    for name, src, err, ms, plain, b, n_launch in (
+            ("voxelize", "voxelize.cu", 0.0, ms5, plain_k5, b5, n5 // ticks),
+            ("sparse_conv", "sparse_conv.cu", err6, sum(per6) / len(per6),
+             plain_enc / len(per6), b6, n6 // ticks),
+            ("rulebook", "sparse_conv.cu", float(bad7), sum(per7) / len(per7), None, b7,
+             n7 // ticks)):
+        bound = b["bound_ms"] / (n_launch if name != "voxelize" else 1)
+        rows.append(dict(name=name, route="cuda", source=f"thinktwice_tpu_torch/csrc/{src}",
+                         replaces="none", launches_a_forward=n_launch, max_abs_err=err, ms=ms,
+                         plain_ms=plain, bound_ms=bound, bound_by="bytes" if name != "sparse_conv"
+                         else "bytes or float32 operations", library_ms=None))
+    del model, net, net_cpu, vox, rec5, rec_enc, rec6, rec7s, rec7d, calls6, town, states, final
     return rows
 
 
@@ -2387,6 +2577,8 @@ def main() -> int:
     from thinktwice_tpu_torch.ops.grid_sample import K4
     from thinktwice_tpu_torch.ops.nvcc import build_all
     from thinktwice_tpu_torch.ops.raycast_cuda import K2
+    from thinktwice_tpu_torch.ops.sparse_conv import K6
+    from thinktwice_tpu_torch.ops.voxelize import K5
     from thinktwice_tpu_torch.rollout import grid_world, rollout
     from thinktwice_tpu_torch.sim.state import state_to_arrays
     from thinktwice_tpu_torch.weights import load_roach_policy
@@ -2413,9 +2605,10 @@ def main() -> int:
 
     # ---- phase 2: build K1 to K4, one nvcc each, at once -----------------
     if on_card:
-        wall = build_all([K1, K2, K3, K4])
-        log(f"[build] K1, K2, K3 and K4 in {wall:.1f} s")
-        for name, k in (("K1", K1), ("K2", K2), ("K3", K3), ("K4", K4)):
+        wall = build_all([K1, K2, K3, K4, K5, K6])
+        log(f"[build] K1 to K7 in {wall:.1f} s")
+        for name, k in (("K1", K1), ("K2", K2), ("K3", K3), ("K4", K4), ("K5", K5),
+                        ("K6 and K7", K6)):
             log(f"[build] {name} {os.path.relpath(k.source, REPO)}: {k.build_seconds:.1f} s")
             for line in k.build_log.strip().splitlines():
                 log(f"[build]   {line.strip()}")
@@ -2517,6 +2710,9 @@ def main() -> int:
     k2_row, look_rows = student_phases(args, on_card, device, card)
     if on_card:
         torch.cuda.empty_cache()
+    sparse_rows = sparse_lidar(device, card, on_card)
+    if on_card:
+        torch.cuda.empty_cache()
     clock.lap("7 student")
 
     # ---- phase 8: the student's training ----------------------------------
@@ -2581,7 +2777,8 @@ def main() -> int:
         k1_keys = ("town_rows", "town_ms", "town_plain_ms", "town_bound_ms", "town_bound_by",
                    "longest6_rows", "longest6_ms", "longest6_bound_ms", "longest6_bound_by")
         log(json.dumps({"kernels": [{k: row[k] for k in keys + (k1_keys if row is k1_row else ())}
-                                    for row in (k1_row, k2_row)] + look_rows}))
+                                    for row in (k1_row, k2_row)] + look_rows
+                          + sparse_rows}))
         log(clock.line())
         log(card_line(device))
         device_info = {"platform": "gpu", "kind": kind,

@@ -55,8 +55,17 @@ POOL_TOL = 1e-5      # a random voxel_pool: float sums added in another order
 
 @pytest.mark.parametrize("name", ["town05_long_config", "longest6_config"])
 def test_benchmark_presets_match(name):
+    """The presets equal the JAX package's field for field; the port's own
+    fields (the sparse LiDAR encoder's, which the JAX package lacks) sit at
+    their defaults, the pillar encoder chosen."""
     port, ref = getattr(config, name)(), getattr(jax_config, name)()
-    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    port_d, ref_d = dataclasses.asdict(port), dataclasses.asdict(ref)
+    own = set(port_d["model"]) - set(ref_d["model"])
+    assert own == set(config.SPARSE_LIDAR_FIELDS)
+    assert port.model.lidar_encoder == "pillar"
+    for k in own:
+        assert port_d["model"].pop(k) == getattr(config.ModelConfig(), k), k
+    assert port_d == ref_d
     assert type(port) is config.Config
 
 

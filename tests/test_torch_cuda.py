@@ -4,9 +4,11 @@ collected for training, on a table of an imported town's size and on one
 at the Longest6 evaluation's 508 vehicle slots, the
 card's world step against the CPU's, one train step of a tiny student,
 and one small PPO and BC iterate of the
-Roach expert (K1 on their rollouts), on the card against the CPU, and a
+Roach expert (K1 on their rollouts), on the card against the CPU, a
 data-parallel step over a 1-rank NCCL and a 2-rank gloo group on the card
-against the one-process step. These tests need an NVIDIA card and skip
+against the one-process step, and the sparse LiDAR encoder's kernels (K5
+the voxelizer, K6 the sparse convolution and K7 its rulebooks) against
+their plain versions at the closed loop's size. These tests need an NVIDIA card and skip
 without one; they import no JAX, so on a machine with a card and no JAX
 they run with
 
@@ -837,3 +839,120 @@ def test_student_forward_launches_k3_and_k4_once_a_refine_layer_on_card(card):
     torch.cuda.synchronize()
     assert (k3.K3.launches - before[0], k4.K4.launches - before[1]) == (5, 5)
     assert ctrl.shape == (8, 3) and bool(torch.isfinite(ctrl).all())
+
+
+def _loop8_points(card, seed=0):
+    """The closed loop's LiDAR input at its size: 8 grid worlds, two sweeps
+    of 64 x 1,024 rays merged (131,072 points a world), as the driver
+    hands them to the student."""
+    from thinktwice_tpu_torch.config import bench_config
+    from thinktwice_tpu_torch.sensors.lidar import lidar_from_state, merge_sweeps
+
+    cfg = bench_config()
+    g = torch.Generator(device=card).manual_seed(seed)
+    town, state = grid_world(cfg, 8, 120, device=card, generator=g)
+    now = lidar_from_state(cfg.lidar, town, state, generator=g)
+    ctrl = torch.tensor([[0.6, 0.0, 0.0]], device=card).expand(8, 3).contiguous()
+    for _ in range(4):
+        state, _ = step_world(cfg, town, state, ctrl,
+                              draws=sample_step_draws(town, state, g))
+    prev = lidar_from_state(cfg.lidar, town, state, generator=g)
+    ego = (state.ego.pos, state.ego.yaw)
+    return merge_sweeps(*now, *prev, ego, ego)
+
+
+def _sparse_net(card):
+    from port_bench.reference.seeded import seeded_params
+    from thinktwice_tpu_torch.models.sparse_lidarnet import SparseLidarNet
+
+    net = SparseLidarNet(ModelConfig(lidar_encoder="sparse")).to(card).eval()
+    seeded_params(net, 3, card)
+    return net
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_voxels", [160_000, 4_000])
+def test_k5_matches_plain_on_card(card, max_voxels):
+    """K5's voxels, kept points, counts and VFE means are the plain
+    version's bit for bit at the closed loop's size, the cap biting or not;
+    rows past the voxels kept are empty."""
+    from thinktwice_tpu_torch.ops import voxelize as vx
+
+    spec = vx.VoxelSpec.from_config(ModelConfig(lidar_encoder="sparse",
+                                                sparse_max_voxels=max_voxels))
+    pts, mask = _loop8_points(card)
+    got = vx.voxelize_cuda(pts, mask, spec)
+    want = vx.voxelize_plain(pts.cpu(), mask.cpu(), spec)
+    n = int(got.n[0])
+    assert got.n.cpu().tolist() == want.n.tolist()
+    assert (int(want.n[1]) > 0) == (max_voxels < 100_000)
+    for name in ("coords", "point_idx", "counts", "feats"):
+        assert torch.equal(getattr(got, name)[:n].cpu(), getattr(want, name)), name
+    assert (got.coords[n:] == -1).all() and (got.counts[n:] == 0).all()
+    if max_voxels < 100_000:
+        assert n == 8 * max_voxels                              # every world at its cap
+    else:
+        assert 8 * 20_000 < n < 8 * 131_072
+
+
+@pytest.mark.cuda
+def test_sparse_encoder_matches_plain_on_card_without_a_sync(card):
+    """The whole sparse encoder on the card (K5, K7's rulebooks, 21 K6
+    launches, the dense scatter) with torch's sync debug mode at "error":
+    no host synchronisation; its dense output is the plain version's on the
+    CPU to 1e-5 of its scale."""
+    from thinktwice_tpu_torch.models.sparse_lidarnet import SparseLidarNet
+    from thinktwice_tpu_torch.ops import sparse_conv as sc
+
+    net = _sparse_net(card)
+    pts, mask = _loop8_points(card)
+    before = sc.K6.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            got = net.encode(net.voxelize(pts, mask), 8)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert got.shape == (8, 256, 84, 84)
+    net_cpu = SparseLidarNet(net.cfg).eval()
+    net_cpu.load_state_dict({k: v.cpu() for k, v in net.state_dict().items()})
+    with torch.no_grad():
+        want = net_cpu.encode(net_cpu.voxelize(pts.cpu(), mask.cpu()), 8)
+    scale = float(want.abs().max())
+    assert scale > 0
+    assert float((got.cpu() - want).abs().max()) <= 1e-5 * scale
+    assert sc.K6.launches - before == 21
+
+
+@pytest.mark.cuda
+def test_sparse_encoder_is_bit_identical_run_to_run_on_card(card):
+    """Two forwards of the sparse encoder on the same points give the same
+    voxels and the same dense output, bit for bit (no float atomics)."""
+    net = _sparse_net(card)
+    pts, mask = _loop8_points(card, seed=1)
+    with torch.no_grad():
+        runs = []
+        for _ in range(2):
+            vox = net.voxelize(pts, mask)
+            runs.append((vox, net.encode(vox, 8), net(pts, mask)))
+    (v1, d1, o1), (v2, d2, o2) = runs
+    for name in ("coords", "point_idx", "counts", "feats", "n", "grid"):
+        assert torch.equal(getattr(v1, name), getattr(v2, name)), name
+    assert torch.equal(d1, d2) and torch.equal(o1, o2)
+
+
+@pytest.mark.cuda
+def test_k6_takes_no_gradient_on_card(card):
+    from thinktwice_tpu_torch.ops import sparse_conv as sc
+    from thinktwice_tpu_torch.ops import voxelize as vx
+
+    net = _sparse_net(card)
+    pts, mask = _loop8_points(card)
+    vox = vx.voxelize_cuda(pts[:1].contiguous(), mask[:1].contiguous(), net.spec)
+    level = sc.Level(vox.coords, vox.n[:1], net.spec.shape, 1, vox.grid)
+    x = vox.feats.clone().requires_grad_(True)
+    conv = net.middle_encoder.conv_input
+    y = conv(x, sc.subm_rulebook(level))
+    with pytest.raises(RuntimeError, match="no backward"):
+        y.sum().backward()

@@ -1,7 +1,8 @@
 """`chip_smoke.py --device cpu --small` runs whole without the JAX stack
 (see tests/test_torch_no_jax.py): the Roach rollout, the tiny student's
-closed loop, the three evaluator phases, the training phases (collection,
-3 steps of loop.train, the archive read back), the expert's training
+closed loop with the pillar and with the sparse LiDAR encoder, the three
+evaluator phases, the training phases (collection, 3 steps of
+loop.train, the archive read back), the expert's training
 phases (PPO, BC and its probe), the multi-process phases (the dry run, the
 data-parallel step, the sharded rollout), the imported town's phases (the
 town compiled and cached, its rollout, the reference export) and the
@@ -32,7 +33,8 @@ def test_port_and_smoke_run_without_jax_stack(tmp_path):
                 "[ppo iterate] 0:", "[ppo card vs cpu]", "[bc iterate]", "[bc probe]",
                 "[bc card vs cpu]", "[ddp step]", "[ddp dryrun] frozen",
                 "[worlds sharded] rank 1", "[town import] 2 worlds x 4 ticks",
-                "[reference export] 1 world x 7 frames", "[longest6]", "[phase seconds]"):
+                "[reference export] 1 world x 7 frames", "[longest6]", "[phase seconds]",
+                "[sparse student] 2 worlds x 1 ticks", "[sparse lidar]"):
         assert any(line.startswith(tag) for line in lines), tag
     assert any(line.startswith("[rollout] ") for line in lines)
     assert any(line.startswith("[student] 2 worlds x 4 ticks") for line in lines)

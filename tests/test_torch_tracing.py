@@ -3,7 +3,8 @@ CPU: off they cost no `record_function` and record nothing; under the
 profiler every span of the world step, the expert, the sensors and the
 student's forward is in the trace inside its parent; the records add up;
 outputs are bit-identical with spans on and off; a sync counts on the
-innermost open span; and the benchmark's readers of the spans read them.
+innermost open span; the sparse LiDAR encoder's counters add up and wait
+for `records()`; and the benchmark's readers of the spans read them.
 """
 
 import pytest
@@ -189,4 +190,79 @@ def test_the_benchmark_readers_read_the_spans(parts):
         assert isinstance(value, float) and value >= 0.0, name
         assert read({"steps": 1}) is None, name
     assert registry.reader("syncs_per_tick")(traced) == 0.0
+    tracing.reset()
+
+
+SPARSE = ModelConfig(lidar_encoder="sparse", sparse_voxel_size=(0.6, 0.6, 0.2),
+                     sparse_shape=(41, 64, 64))
+
+
+def _sparse_inputs():
+    from thinktwice_tpu_torch.models.sparse_lidarnet import SparseLidarNet
+
+    torch.manual_seed(3)
+    net = SparseLidarNet(SPARSE).eval()
+    g = torch.Generator().manual_seed(4)
+    pts = torch.cat([torch.rand(2, 800, 1, generator=g) * 8, torch.rand(2, 800, 1, generator=g)
+                     * 8 - 4, torch.rand(2, 800, 1, generator=g) * 3 - 1,
+                     torch.rand(2, 800, 2, generator=g)], -1)
+    return net, pts, torch.rand(2, 800, generator=g) > 0.1
+
+
+def test_the_sparse_encoder_counters_sum_over_two_forwards():
+    """`voxels`, `voxels_dropped` and `rule_pairs` add up over two forwards,
+    are kept as tensors until `records()` reads them (no int() of a device
+    value inside the forward), count nothing with the spans off, and the
+    readers find `voxels_per_tick` and the LiDAR spans."""
+    from thinktwice_tpu_torch.ops import sparse_conv as sc
+
+    net, pts, mask = _sparse_inputs()
+    tracing.reset()
+    with torch.no_grad():
+        net(pts, mask)
+    assert tracing.records() == {}
+    pairs = []
+    real = sc.sparse_conv
+
+    def spy(x, rb, *a, **k):
+        pairs.append(int(rb.pairs))
+        return real(x, rb, *a, **k)
+
+    with tracing.recording(), torch.no_grad():
+        sc.sparse_conv = spy
+        try:
+            vox = net.voxelize(pts, mask)
+            net(pts, mask)
+        finally:
+            sc.sparse_conv = real
+        pending = tracing._records["student_forward.lidar.sparse"].counts["rule_pairs"]
+        assert len(pending) == 21 and all(torch.is_tensor(v) for v in pending)
+    recs = tracing.records()
+    assert recs["student_forward.lidar.voxelize"]["counters"] == {
+        "voxels": 2 * int(vox.n[0]), "voxels_dropped": 0}
+    assert recs["student_forward.lidar.sparse"]["counters"] == {"rule_pairs": sum(pairs)}
+    assert recs["student_forward.lidar.sparse"]["calls"] == 1
+    assert {r["syncs"] for r in recs.values()} == {0}
+    assert tracing.records()["student_forward.lidar.sparse"]["counters"]["rule_pairs"] == \
+        sum(pairs)   # read twice, counted once
+    traced = {"trace": {"steps": 2}}
+    assert registry.reader("voxels_per_tick")(traced) == int(vox.n[0])
+    assert registry.reader("lidar_sparse_ms")(traced) > 0
+    tracing.reset()
+    assert registry.reader("voxels_per_tick")({"trace": {"steps": 1}}) is None
+
+
+def test_a_counter_off_costs_what_a_span_off_costs():
+    tracing.reset()
+    value = torch.ones(1)
+    tracing.count("voxels", value)
+    with tracing.span("outer"):
+        tracing.count("voxels", value)
+    assert tracing.records() == {}
+    with tracing.recording():
+        tracing.count("voxels", value)       # no open span: nowhere to count
+        with tracing.span("outer"):
+            tracing.count("voxels", value)
+            tracing.count("voxels", 2)
+    assert tracing.records()["outer"]["counters"] == {"voxels": 3}
     tracing.reset()

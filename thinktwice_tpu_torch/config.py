@@ -4,7 +4,9 @@ A copy of the dataclasses of `thinktwice_tpu/config.py` that this package
 reads (`SimConfig`, `BirdviewConfig`, `CameraConfig`, `LidarConfig`,
 `ModelConfig`, `RoachConfig`, `TrainConfig` and the `Config` that holds
 them), with the same field names and defaults, so a test can build one of
-each from the same numbers.
+each from the same numbers. `ModelConfig` has the port's own fields besides,
+`SPARSE_LIDAR_FIELDS`: the published sparse LiDAR encoder's, which the JAX
+package does not have; their defaults leave the pillar encoder in place.
 """
 
 from __future__ import annotations
@@ -127,6 +129,32 @@ class ModelConfig:
     img_height: int = 256
     img_width: int = 512
     lidar_pillar_grid: int = 336     # dense pillar grid edge
+    # the LiDAR encoder: "pillar" (LidarNet, the dense pillar grid) or
+    # "sparse" (SparseLidarNet: mmdet3d's hard voxelization, HardSimpleVFE,
+    # SparseEncoder, SECOND and SECONDFPN). The sparse_* fields set the
+    # sparse one, with mmdet3d's names in comments; "pillar" reads none.
+    lidar_encoder: str = "pillar"
+    sparse_voxel_size: Tuple[float, ...] = (38.4 / 672, 38.4 / 672, 0.2)   # voxel_size
+    sparse_point_range: Tuple[float, ...] = (-8.0, -19.2, -5.0, 30.4, 19.2, 3.0)
+    sparse_shape: Tuple[int, ...] = (41, 672, 672)    # z, y, x, as the middle encoder's
+    sparse_max_points: int = 10                        # max_num_points
+    sparse_max_voxels: int = 160_000                   # a world (the published test cap)
+    sparse_base_channels: int = 16
+    sparse_output_channels: int = 128
+    sparse_encoder_channels: Tuple[Tuple[int, ...], ...] = (
+        (16, 16, 32), (32, 32, 64), (64, 64, 128), (128, 128))
+    sparse_encoder_paddings: Tuple[Tuple, ...] = (
+        (0, 0, 1), (0, 0, 1), (0, 0, (0, 1, 1)), (0, 0))
+    second_out_channels: Tuple[int, ...] = (128, 256)
+    second_layer_nums: Tuple[int, ...] = (5, 5)
+    second_layer_strides: Tuple[int, ...] = (1, 2)
+    fpn_out_channels: Tuple[int, ...] = (256, 256)
+    fpn_upsample_strides: Tuple[int, ...] = (1, 2)
+
+
+SPARSE_LIDAR_FIELDS = tuple(
+    f.name for f in dataclasses.fields(ModelConfig)
+    if f.name == "lidar_encoder" or f.name.startswith(("sparse_", "second_", "fpn_")))
 
 
 @dataclasses.dataclass(frozen=True)

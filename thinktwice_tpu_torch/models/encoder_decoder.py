@@ -29,6 +29,7 @@ from thinktwice_tpu_torch.models.decoder import BEVPyramid, ThinkTwiceDecoder
 from thinktwice_tpu_torch.models.layers import MLP, Conv, ConvGN, SEBasicBlock
 from thinktwice_tpu_torch.models.lidarnet import LidarNet
 from thinktwice_tpu_torch.models.lss import DOWNSAMPLE, MultiSweepLSS
+from thinktwice_tpu_torch.models.sparse_lidarnet import SparseLidarNet
 
 BF16 = torch.bfloat16
 FPN_CHANNELS = 256
@@ -41,6 +42,16 @@ def bev_to_bird(bev):
     """(.., C, ny, nx) metric BEV (x forward along columns, y right along
     rows) -> the bird orientation (row 0 farthest ahead, column = right)."""
     return torch.flip(bev.transpose(-1, -2), dims=(-2,))
+
+
+def lidar_encoder(cfg: ModelConfig) -> nn.Module:
+    """The LiDAR encoder cfg.lidar_encoder names: "pillar" (LidarNet) or
+    "sparse" (SparseLidarNet, the published one)."""
+    if cfg.lidar_encoder == "pillar":
+        return LidarNet(cfg)
+    if cfg.lidar_encoder == "sparse":
+        return SparseLidarNet(cfg)
+    raise ValueError(f"unknown lidar_encoder {cfg.lidar_encoder!r}: 'pillar' or 'sparse'")
 
 
 class ThinkTwiceModel(nn.Module):
@@ -56,7 +67,7 @@ class ThinkTwiceModel(nn.Module):
         self.measurements_encoder = MLP(1 + 2 + 6, [128, 128], final_act=True)
         self.ConvGN_0 = ConvGN(C, C, dtype=BF16)
         self.ConvGN_1 = ConvGN(C, C, act=False, dtype=BF16)
-        self.lidar_encoder = LidarNet(cfg)
+        self.lidar_encoder = lidar_encoder(cfg)
         self.ConvGN_2 = ConvGN(LIDAR_CHANNELS, C, stride=2, dtype=BF16)
         self.ConvGN_3 = ConvGN(C, C, stride=2, dtype=BF16)
         self.ConvGN_4 = ConvGN(C, C, act=False, dtype=BF16)

@@ -24,8 +24,17 @@ warning is counted and swallowed. The mode does not flag
 The first span entry or synchronisation after the profiler stops, or a call
 of `records()`, sets the mode back to "default".
 
+A counter counts work the program does on the device (voxels kept, active
+pairs of a sparse convolution):
+
+    tracing.count("voxels", n)      # n a device tensor; summed
+
+While spans are on it keeps a reference to the tensor on the innermost open
+span (no kernel, no copy, no sync); off, it costs what a span off costs.
+The counts are read only in `records()`, after its one synchronise.
+
 `records()` gives, per span name, its parent, calls, device ms of each call,
-inclusive and self host ms, and syncs; `reset()` clears them. Spans carry no
+inclusive and self host ms, syncs and counters; `reset()` clears them. Spans carry no
 tick: reading the world's tick from the card would itself synchronise, so a
 per-tick figure divides by the ticks the caller traced. Spans keep one stack
 for the process: open them from one thread at a time.
@@ -68,13 +77,16 @@ _OFF = _Off()
 
 
 class _Record:
-    __slots__ = ("parent", "calls", "pairs", "device_ms", "host_ns", "self_ns", "syncs")
+    __slots__ = ("parent", "calls", "pairs", "device_ms", "host_ns", "self_ns", "syncs",
+                 "counts", "counted")
 
     def __init__(self, parent: str | None):
         self.parent = parent
         self.calls = self.host_ns = self.self_ns = self.syncs = 0
         self.pairs: list = []          # (start, end) CUDA events not yet read
         self.device_ms: list[float] = []
+        self.counts: dict = {}         # counter name -> tensors not yet read
+        self.counted: dict = {}        # counter name -> the sum read so far
 
 
 class _Span:
@@ -135,6 +147,14 @@ def span(name: str):
     return _OFF
 
 
+def count(name: str, value) -> None:
+    """Add value (a tensor, summed; or a number) to counter `name` of the
+    innermost open span while spans are on (see the module's docstring)."""
+    if not (_live or _profiler._is_profiler_enabled) or not _stack or not _enabled():
+        return
+    _stack[-1].record.counts.setdefault(name, []).append(value)
+
+
 def _showwarning(message, category, filename, lineno, file=None, line=None):
     """warnings.showwarning while armed: counts a sync warning against the
     innermost open span and swallows it, and passes any other warning on."""
@@ -191,12 +211,12 @@ def recording():
 
 def records() -> dict:
     """{span name: {parent, calls, device_ms (one a call), host_ms
-    (inclusive), self_host_ms (not covered by child spans), syncs}} of every
-    span closed since the last reset(). Synchronises the device once (not
-    counted) when CUDA events are pending."""
+    (inclusive), self_host_ms (not covered by child spans), syncs, counters
+    {name: sum}}} of every span closed since the last reset(). Synchronises
+    the device once (not counted) when CUDA events or counts are pending."""
     if _armed and not _enabled():
         _disarm()
-    if any(r.pairs for r in _records.values()):
+    if torch.cuda.is_initialized() and any(r.pairs or r.counts for r in _records.values()):
         torch.cuda.synchronize()
     out = {}
     for name, r in _records.items():
@@ -204,9 +224,13 @@ def records() -> dict:
             r.device_ms.append(a.elapsed_time(b))
             _pool.extend((a, b))
         r.pairs.clear()
+        for key, values in r.counts.items():
+            total = sum(int(v.sum()) if torch.is_tensor(v) else int(v) for v in values)
+            r.counted[key] = r.counted.get(key, 0) + total
+        r.counts.clear()
         out[name] = {"parent": r.parent, "calls": r.calls, "device_ms": list(r.device_ms),
                      "host_ms": r.host_ns / 1e6, "self_host_ms": r.self_ns / 1e6,
-                     "syncs": r.syncs}
+                     "syncs": r.syncs, "counters": dict(r.counted)}
     return out
 
 

@@ -45,12 +45,17 @@ TRUNC_STD = 0.87962566103423978   # std of a standard normal truncated to [-2, 2
 def make_model(cfg: Config, backbone_depth: int = 50, n_sweeps: int = 1,
                device="cuda") -> ThinkTwiceModel:
     """The student with parameters allocated on `device` and not yet set:
-    load a state_dict into it or call init_model_params."""
+    load a state_dict into it or call init_model_params. Batch norms' running
+    statistics (the sparse LiDAR encoder's) start at 0 and 1."""
     device = resolve_device(device)
     with torch.device("meta"):
         model = ThinkTwiceModel(cfg.model, backbone_depth=backbone_depth,
                                 n_sweeps=n_sweeps, n_cams=cfg.camera.n_cams)
-    return model.to_empty(device=device)
+    model = model.to_empty(device=device)
+    for m in model.modules():
+        if hasattr(m, "reset_running_stats"):
+            m.reset_running_stats()
+    return model
 
 
 def model_forward(cfg: Config, model: ThinkTwiceModel):
